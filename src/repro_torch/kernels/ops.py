@@ -1,0 +1,115 @@
+"""The router between each CUDA kernel and its plain PyTorch version.
+
+A tensor on the CPU goes to the plain version (counted as ``<name>_ref``);
+any other tensor goes to the CUDA kernel, which launches (counted as
+``<name>`` in ``_build.launch``) or raises.  There is no fallback from a
+failed build or launch to the plain version.
+
+``DISPATCH_COUNTS`` keeps the JAX package's key names, so the serving
+layer states the same contract: one ``vgm_decode_table`` dispatch per
+request, one ``segment_activations`` per generator forward.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+from typing import Sequence
+
+import torch
+
+from . import ref
+from ._build import DISPATCH_COUNTS
+from .segment_activations import (build_span_layout, layout_tensors,
+                                  segment_activations_cuda)
+from .vgm_decode import vgm_decode_table_cuda
+from .vgm_encode import vgm_encode_table_cuda
+
+__all__ = ["DISPATCH_COUNTS", "dispatch_scope", "stage_dispatches",
+           "vgm_encode_table", "vgm_decode_table", "segment_activations",
+           "pack_segments"]
+
+
+@contextlib.contextmanager
+def dispatch_scope():
+    """Attribute kernel dispatches to one code region without resetting
+    the global counter: the yielded ``Counter`` is filled on exit with the
+    region's deltas.
+
+        with ops.dispatch_scope() as d:
+            plan.decode(encoded)
+        assert stage_dispatches(d, "vgm_decode_table") == 1
+    """
+    before = DISPATCH_COUNTS.copy()
+    scoped: collections.Counter = collections.Counter()
+    try:
+        yield scoped
+    finally:
+        for k, v in DISPATCH_COUNTS.items():
+            delta = v - before.get(k, 0)
+            if delta:
+                scoped[k] = delta
+
+
+def stage_dispatches(counts, stage: str) -> int:
+    """Dispatches of one pipeline stage summed over both routes
+    (``<stage>`` kernel + ``<stage>_ref`` plain version)."""
+    return sum(v for k, v in counts.items()
+               if k == stage or k == stage + "_ref")
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def vgm_encode_table(x_cols, means, stds, log_weights, gumbel):
+    """Encode all continuous columns in one dispatch; see
+    :mod:`repro_torch.kernels.vgm_encode`."""
+    if _on_cpu(x_cols):
+        DISPATCH_COUNTS["vgm_encode_table_ref"] += 1
+        return ref.vgm_encode_table_ref(x_cols, means, stds, log_weights,
+                                        gumbel)
+    return vgm_encode_table_cuda(x_cols, means, stds, log_weights, gumbel)
+
+
+def vgm_decode_table(slots, means, stds):
+    """Decode all continuous columns in one dispatch; see
+    :mod:`repro_torch.kernels.vgm_decode`."""
+    if _on_cpu(slots):
+        DISPATCH_COUNTS["vgm_decode_table_ref"] += 1
+        return ref.vgm_decode_table_ref(slots, means, stds)
+    return vgm_decode_table_cuda(slots, means, stds)
+
+
+def pack_segments(logits: torch.Tensor, spans: Sequence, uniforms: torch.Tensor):
+    """Gather a (N, dim) logit row and its (N, dim) uniforms into the
+    packed ``(N, S*Wmax)`` lane layout.
+
+    ``uniforms`` lies in the encoded row layout: span ``i`` reads its
+    ``(N, w_i)`` draw at ``[start_i, start_i + w_i)``, exactly the
+    per-span ``jax.random.uniform(keys[i], (N, w_i))`` streams of the JAX
+    reference laid side by side.  Padded lanes and tanh spans get 0.5, and
+    padded logit lanes ``-inf``.  Returns (layout, packed_x, packed_u)."""
+    layout = build_span_layout(tuple(spans))
+    t = layout_tensors(layout, logits.device)
+    packed_x = torch.where(t.pack_pad, -torch.inf,
+                           logits.float().index_select(1, t.pack_src))
+    packed_u = torch.where(t.u_fixed, 0.5,
+                           uniforms.float().index_select(1, t.pack_src))
+    return layout, packed_x, packed_u
+
+
+def segment_activations(logits: torch.Tensor, spans: Sequence,
+                        uniforms: torch.Tensor, tau: float,
+                        hard: bool = False) -> torch.Tensor:
+    """tanh + Gumbel-softmax over the whole encoded row in one dispatch;
+    forward only.  ``uniforms`` (N, dim) as in :func:`pack_segments`."""
+    layout, packed_x, packed_u = pack_segments(logits, spans, uniforms)
+    t = layout_tensors(layout, logits.device)
+    if _on_cpu(logits):
+        DISPATCH_COUNTS["segment_activations_ref"] += 1
+        out = ref.segment_activations_ref(packed_x, packed_u, t.kinds,
+                                          float(tau), bool(hard))
+    else:
+        out = segment_activations_cuda(packed_x, packed_u, t.kinds,
+                                       float(tau), bool(hard))
+    return out.index_select(1, t.unpack_src)

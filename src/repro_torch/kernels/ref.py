@@ -1,0 +1,81 @@
+"""Plain-PyTorch versions of the three CUDA kernels of the serving path.
+
+Each function mirrors the signature and op order of its counterpart in the
+JAX package's ``kernels/ref.py``.  They are the CPU route of
+:mod:`repro_torch.kernels.ops` and the yardstick every CUDA kernel is held
+against on the card.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+# Gumbel-noise epsilon shared by the activation loop oracle
+# (gan.ctgan.apply_activations), this module and the CUDA kernel.
+GUMBEL_EPS = 1e-20
+
+_HALF_LOG2PI = 0.5 * math.log(2 * math.pi)
+
+
+def vgm_encode_table_ref(x_cols: torch.Tensor, means: torch.Tensor,
+                         stds: torch.Tensor, log_weights: torch.Tensor,
+                         gumbel: torch.Tensor) -> torch.Tensor:
+    """x_cols (N, Q); means/stds/log_weights (Q, K) packed per-column
+    params (padded modes carry log_weights=-1e30); gumbel (N, Q*K).
+    Returns slots (N, Q*(1+K)): per column ``[alpha, beta_0..beta_{K-1}]``.
+    """
+    N, Q = x_cols.shape
+    K = means.shape[1]
+    g = gumbel.reshape(N, Q, K)
+    xf = x_cols.float()
+    z = (xf[:, :, None] - means[None]) / stds[None]
+    log_pdf = -0.5 * z * z - torch.log(stds)[None] - _HALF_LOG2PI
+    comp = torch.argmax(log_pdf + log_weights[None] + g, dim=2)      # (N, Q)
+    mu = torch.gather(means.expand(N, Q, K), 2, comp[:, :, None])[:, :, 0]
+    sd = torch.gather(stds.expand(N, Q, K), 2, comp[:, :, None])[:, :, 0]
+    alpha = torch.clamp((xf - mu) / (4.0 * sd), -1.0, 1.0)
+    beta = torch.nn.functional.one_hot(comp, K).float()              # (N, Q, K)
+    return torch.cat([alpha[:, :, None], beta], dim=2).reshape(N, Q * (1 + K))
+
+
+def vgm_decode_table_ref(slots: torch.Tensor, means: torch.Tensor,
+                         stds: torch.Tensor) -> torch.Tensor:
+    """slots (N, Q*(1+K)) per-column ``[alpha, beta_0..beta_{K-1}]``
+    (padded beta lanes hold -1e30); means/stds (Q, K).  Returns (N, Q).
+    No fused multiply-add: ``clip(alpha) * 4 * sd`` is rounded before
+    ``+ mu``."""
+    N = slots.shape[0]
+    Q, K = means.shape
+    s = slots.reshape(N, Q, 1 + K)
+    comp = torch.argmax(s[:, :, 1:], dim=2)
+    mu = torch.gather(means.expand(N, Q, K), 2, comp[:, :, None])[:, :, 0]
+    sd = torch.gather(stds.expand(N, Q, K), 2, comp[:, :, None])[:, :, 0]
+    return torch.clamp(s[:, :, 0], -1.0, 1.0) * 4.0 * sd + mu
+
+
+def segment_activations_ref(packed_x: torch.Tensor, packed_u: torch.Tensor,
+                            kinds: torch.Tensor, tau: float,
+                            hard: bool = False) -> torch.Tensor:
+    """packed_x (N, S*W) logits in span-slot layout (-inf padded lanes);
+    packed_u (N, S*W) uniforms (padded lanes in (0, 1)); kinds (S, W) rows
+    of 1.0 for tanh spans.  Returns packed activations (N, S*W).  The
+    straight-through forward is ``(onehot - y) + y`` in that association,
+    as in the reference."""
+    N = packed_x.shape[0]
+    S, W = kinds.shape
+    x = packed_x.reshape(N, S, W).float()
+    u = packed_u.reshape(N, S, W).float()
+    g = -torch.log(-torch.log(u + GUMBEL_EPS) + GUMBEL_EPS)
+    z = (x + g) / tau
+    # jax.nn.softmax's chain (max, exp, sum, divide), written out: torch's
+    # own softmax may multiply by the reciprocal of the sum instead
+    e = torch.exp(z - torch.amax(z, dim=2, keepdim=True))
+    y = e / torch.sum(e, dim=2, keepdim=True)
+    if hard:
+        onehot = torch.nn.functional.one_hot(torch.argmax(y, dim=2), W).float()
+        y = (onehot - y) + y
+    out = torch.where(kinds[None] > 0.5, torch.tanh(x), y)
+    return out.reshape(N, S * W)

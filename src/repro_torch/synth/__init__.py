@@ -1,0 +1,3 @@
+from .engine import sample_synthetic_conditional, synthesize_table
+from .sampler import (DeviceSampler, SamplerDraws, SamplerTables, draw_batch,
+                      draw_conditions)

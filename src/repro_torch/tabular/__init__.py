@@ -1,0 +1,8 @@
+from .datasets import (TabularDataset, make_dataset, partition_full_copy,
+                       partition_iid, partition_label_skew,
+                       partition_malicious, partition_quantity_skew)
+from .encoders import (ColumnSpec, DecodePlan, EncodePlan, LabelEncoder,
+                       SpanInfo, TableEncoders, fit_centralized_encoders,
+                       make_decode_plan, make_encode_plan)
+from .vgm import (NEG_INF, VGMParams, decode_column, fit_vgm,
+                  kernel_log_weights, pack_vgm_params)
