@@ -1,8 +1,11 @@
-// Per-span output activations of the CTGAN generator (forward), sm_90a.
+// Per-span output activations of the CTGAN generator, forward and
+// backward, sm_90a.
 //
-// Replaces the Pallas kernel `segment_activations` of the JAX package
-// (src/repro/kernels/segment_activations.py:134, block `_segment_act_block`
-// :107).  Spans are packed into an (S, Wmax) lane grid per row; padded
+// The forward replaces the Pallas kernel `segment_activations` of the JAX
+// package (src/repro/kernels/segment_activations.py:134, block
+// `_segment_act_block` :107); the backward replaces its custom VJP
+// (`_packed_bwd` :200-205, the jnp oracle's VJP; see the backward kernel
+// below).  Spans are packed into an (S, Wmax) lane grid per row; padded
 // logit lanes hold -inf.  A tanh span gets tanh(x) on every lane.  Any
 // other span gets the Gumbel-softmax at temperature tau of its logits with
 // the pre-drawn uniforms u: g = -log(-log(u + eps) + eps), y = softmax((x +
@@ -78,6 +81,63 @@ __global__ void segment_activations_kernel(const float* __restrict__ x,
   }
 }
 
+// Backward: the gradient w.r.t. the packed logits for the upstream
+// gradient ct.  Tanh lanes give ct * (1 - tanh(x)^2).  Softmax lanes
+// recompute the soft sample y from x and u (in hard mode the forward's
+// output is the one-hot, so it cannot be reused) and give
+// y * (ct - sum_lanes(ct * y)) / tau; hard mode passes this soft gradient
+// (straight-through).  Padded lanes (x = -inf) get y = 0, so 0.  u and
+// kinds take no gradient.
+//
+// What bounds it: bytes (x, u and ct read, the gradient written: 16 bytes a
+// lane), and at the training shape (500 rows) the launch itself.  The
+// layout and the lane passes are the forward's: one thread per (row,
+// span), intermediates kept in the thread's own lanes of the output.
+__global__ void segment_activations_bwd_kernel(const float* __restrict__ x,
+                                               const float* __restrict__ u,
+                                               const float* __restrict__ kinds,
+                                               const float* __restrict__ ct,
+                                               float* __restrict__ gx,
+                                               long long n, int s, int w,
+                                               float tau) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n * s) return;
+  const int span = (int)(idx % s);
+  const long long base = idx * w;
+  const float* xs = x + base;
+  const float* us = u + base;
+  const float* cs = ct + base;
+  float* o = gx + base;
+
+  if (kinds[span * w] > 0.5f) {
+    for (int l = 0; l < w; ++l) {
+      const float t = tanhf(xs[l]);
+      o[l] = cs[l] * (1.0f - t * t);
+    }
+    return;
+  }
+  float m = -INFINITY;
+  for (int l = 0; l < w; ++l) {
+    const float g = -logf(-logf(us[l] + kGumbelEps) + kGumbelEps);
+    const float z = (xs[l] + g) / tau;
+    o[l] = z;
+    m = fmaxf(m, z);
+  }
+  float sum = 0.0f;
+  for (int l = 0; l < w; ++l) {
+    const float e = expf(o[l] - m);
+    o[l] = e;
+    sum += e;
+  }
+  float dot = 0.0f;
+  for (int l = 0; l < w; ++l) {
+    const float y = o[l] / sum;
+    o[l] = y;
+    dot += cs[l] * y;
+  }
+  for (int l = 0; l < w; ++l) o[l] = o[l] * (cs[l] - dot) / tau;
+}
+
 }  // namespace
 
 extern "C" int segment_activations_f32(const float* x, const float* u,
@@ -89,6 +149,20 @@ extern "C" int segment_activations_f32(const float* x, const float* u,
   const unsigned blocks = (unsigned)((cells + threads - 1) / threads);
   segment_activations_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       x, u, kinds, out, n, s, w, tau, hard);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int segment_activations_bwd_f32(const float* x, const float* u,
+                                           const float* kinds,
+                                           const float* ct, float* gx,
+                                           long long n, int s, int w,
+                                           float tau, void* stream) {
+  const int threads = 256;
+  const long long cells = n * s;
+  const unsigned blocks = (unsigned)((cells + threads - 1) / threads);
+  segment_activations_bwd_kernel<<<blocks, threads, 0,
+                                   (cudaStream_t)stream>>>(
+      x, u, kinds, ct, gx, n, s, w, tau);
   return (int)cudaGetLastError();
 }
 

@@ -6,6 +6,7 @@ plain PyTorch version of every kernel.  There is no silent fallback.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,12 @@ def resolve_device(device: torch.device | str) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def seeded_generator(device: torch.device | str, *ids: int) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from the integers ``ids``
+    (a run's seed, then the stream's and the client's index, ...), so that
+    each stream of a run draws independently and reproducibly."""
+    seed = int(np.random.SeedSequence([int(i) for i in ids]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
+    return torch.Generator(device=device).manual_seed(seed)

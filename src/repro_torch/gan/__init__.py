@@ -1,3 +1,5 @@
-from .ctgan import (CTGANConfig, Generator, apply_activations,
-                    apply_activations_fused, init_generator)
-from .trainer import sample_synthetic
+from .ctgan import (CTGANConfig, Discriminator, Generator, apply_activations,
+                    apply_activations_fused, conditional_loss,
+                    gradient_penalty, init_discriminator, init_generator)
+from .trainer import (GANState, StepNoise, draw_step_noise, init_gan_state,
+                      make_train_steps, sample_synthetic)

@@ -1,5 +1,5 @@
-"""The CTGAN generator (Xu et al., NeurIPS'19) in PyTorch: the part of the
-model that serving runs.
+"""CTGAN (Xu et al., NeurIPS'19) in PyTorch: the generator, the PacGAN
+discriminator and the WGAN-GP and conditional losses that train them.
 
 ``Generator`` is the residual MLP of the JAX package's ``gan/ctgan.py``:
 each block is Linear -> batch norm -> ReLU, concatenated after its input
@@ -9,6 +9,12 @@ reference does; ``nn.BatchNorm1d`` in eval mode would use running
 statistics instead and give other tables.  Linear weights are stored in
 ``nn.Linear``'s ``(fan_out, fan_in)`` layout (the reference keeps
 ``(fan_in, fan_out)``; :mod:`repro_torch.interop` transposes).
+
+``Discriminator`` is the reference's PacGAN critic: ``pac`` rows are
+concatenated into one input, then Linear -> LeakyReLU(0.2) -> dropout per
+hidden layer and a Linear to one score.  Dropout is written as the
+reference writes it, ``where(keep, h / (1 - p), 0)``, and its keep masks
+can be injected.
 """
 from __future__ import annotations
 
@@ -99,6 +105,108 @@ def init_generator(cfg: CTGANConfig, cond_dim: int, data_dim: int, *,
                      generator=generator, device=device)
 
 
+class Discriminator(nn.Module):
+    """PacGAN critic: x (B, data_dim + cond_dim) -> scores (B / pac,).
+
+    Initialized as the reference: every weight and bias uniform in
+    ``±1/sqrt(fan_in)``, drawn from ``generator``; the first fan-in is
+    ``(data_dim + cond_dim) * pac``."""
+
+    def __init__(self, in_dim: int, hidden: Sequence[int], *, pac: int,
+                 dropout: float, generator: torch.Generator | None = None,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        self.pac = int(pac)
+        self.dropout = float(dropout)
+        layers, dim = [], in_dim * self.pac
+        for width in hidden:
+            layers.append(nn.Linear(dim, width, device=device))
+            dim = width
+        self.fc = nn.ModuleList(layers)
+        self.out = nn.Linear(dim, 1, device=device)
+        with torch.no_grad():
+            for lin in list(self.fc) + [self.out]:
+                lim = 1.0 / math.sqrt(lin.in_features)
+                for p in (lin.weight, lin.bias):
+                    p.uniform_(-lim, lim, generator=generator)
+
+    def keep_shapes(self, batch: int) -> list[tuple[int, int]]:
+        """The shapes of the dropout keep masks for a batch of rows."""
+        return [(batch // self.pac, lin.out_features) for lin in self.fc]
+
+    def forward(self, x: torch.Tensor, *, train: bool = True,
+                keep: Sequence[torch.Tensor] | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Scores of the packs of ``x``.  With ``train`` and dropout > 0 each
+        hidden layer keeps the units where ``keep[i]`` (bool, see
+        :meth:`keep_shapes`) is true; masks not given are drawn from
+        ``generator``, keeping each unit with probability ``1 - dropout``."""
+        b = x.shape[0] // self.pac
+        h = x.reshape(b, -1)
+        p = self.dropout
+        for i, lin in enumerate(self.fc):
+            h = nn.functional.leaky_relu(lin(h), 0.2)
+            if train and p > 0:
+                k = (keep[i] if keep is not None else
+                     torch.rand(h.shape, generator=generator,
+                                device=h.device) < 1 - p)
+                h = torch.where(k, h / (1 - p), 0.0)
+        return self.out(h)[:, 0]
+
+
+def init_discriminator(cfg: CTGANConfig, cond_dim: int, data_dim: int, *,
+                       generator: torch.Generator | None = None,
+                       device: torch.device | str | None = None
+                       ) -> Discriminator:
+    """A freshly initialized critic for one table."""
+    return Discriminator(data_dim + cond_dim, cfg.disc_hidden, pac=cfg.pac,
+                         dropout=cfg.dropout, generator=generator,
+                         device=device)
+
+
+def gradient_penalty(disc: Discriminator, real: torch.Tensor,
+                     fake: torch.Tensor, eps: torch.Tensor | None = None, *,
+                     generator: torch.Generator | None = None
+                     ) -> torch.Tensor:
+    """WGAN-GP with pac-aware interpolation: one ``eps`` (B/pac, 1, 1) per
+    pack, drawn uniform from ``generator`` when not given.  The critic runs
+    without dropout; the input gradient keeps its graph
+    (``create_graph=True``) so the penalty differentiates w.r.t. the
+    critic's parameters."""
+    b = real.shape[0] // disc.pac
+    if eps is None:
+        eps = torch.rand((b, 1, 1), generator=generator, device=real.device)
+    r = real.reshape(b, disc.pac, -1)
+    f = fake.reshape(b, disc.pac, -1)
+    inter = (eps * r + (1 - eps) * f).reshape(real.shape)
+    if not inter.requires_grad:
+        inter.requires_grad_()
+    with torch.enable_grad():
+        score = torch.sum(disc(inter, train=False))
+        (g,) = torch.autograd.grad(score, inter, create_graph=True)
+    g = g.reshape(b, -1)
+    gn = torch.sqrt(torch.sum(g * g, dim=1) + 1e-12)
+    return torch.mean((gn - 1.0) ** 2)
+
+
+def conditional_loss(logits: torch.Tensor, cond: torch.Tensor,
+                     mask: torch.Tensor, spans: Sequence[SpanInfo]
+                     ) -> torch.Tensor:
+    """Cross-entropy that makes the generator emit the conditioned
+    category: ``cond`` is the condition vector over the condition spans,
+    ``mask`` (B, n_cond_spans) one-hot selects the span conditioned on."""
+    total = torch.zeros(logits.shape[0], device=logits.device)
+    pos = 0
+    for si, s in enumerate(spans):
+        seg = logits[:, s.start:s.start + s.width]
+        tgt = cond[:, pos:pos + s.width]
+        logp = nn.functional.log_softmax(seg, dim=1)
+        ce = -torch.sum(tgt * logp, dim=1)
+        total = total + ce * mask[:, si]
+        pos += s.width
+    return torch.mean(total)
+
+
 def apply_activations(logits: torch.Tensor, spans: Sequence[SpanInfo],
                       uniforms: torch.Tensor, tau: float,
                       hard: bool = False) -> torch.Tensor:
@@ -117,7 +225,7 @@ def apply_activations(logits: torch.Tensor, spans: Sequence[SpanInfo],
         y = e / torch.sum(e, dim=1, keepdim=True)
         if hard:
             onehot = nn.functional.one_hot(torch.argmax(y, dim=1), s.width)
-            y = (onehot.float() - y) + y
+            y = (onehot.float() - y.detach()) + y      # ST: the soft grad
         parts.append(y)
     return torch.cat(parts, dim=1)
 

@@ -1,13 +1,160 @@
-"""Unconditional sampling from a CTGAN generator.
+"""CTGAN's train step and unconditional sampling.
 
-The training steps (discriminator, gradient penalty, Adam, the
-``segment_activations`` backward) arrive with the training slice.
+``make_train_steps`` builds one step, a critic update and then a generator
+update (CTGAN's n_critic = 1), as the JAX package's ``gan/trainer.py`` does:
+
+* the critic step draws fakes with the soft activations (``hard=False``)
+  and takes no gradient through the generator; its loss is the WGAN
+  critic loss plus ``gp_lambda`` times the gradient penalty;
+* the generator step uses the critic parameters that this step's critic
+  update just produced; its loss is ``-mean(critic(fake)) +
+  conditional_loss``, and its gradient reaches the logits through the
+  ``segment_activations`` backward.
+
+Every random draw of a step is in a :class:`StepNoise`; one can be
+injected (the tests feed the reference's draws), else it is drawn from the
+client's own ``torch.Generator`` in :class:`GANState`.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
+from typing import NamedTuple, Sequence
+
 import torch
 
-from .ctgan import CTGANConfig, Generator, apply_activations_fused
+from ..optim import AdamState, adam
+from ..tabular.encoders import SpanInfo
+from .ctgan import (CTGANConfig, Discriminator, Generator,
+                    apply_activations_fused, conditional_loss,
+                    gradient_penalty, init_discriminator, init_generator)
+
+
+@dataclasses.dataclass
+class GANState:
+    """One client's model and optimizer state.  ``rng`` (on the models'
+    device) draws the client's batches and step noise; ``step`` counts the
+    train steps taken.  A step updates the state in place."""
+    gen: Generator
+    disc: Discriminator
+    g_opt: AdamState
+    d_opt: AdamState
+    step: int
+    rng: torch.Generator
+
+    def params(self) -> list[torch.Tensor]:
+        """Generator then critic parameters: what the federator merges."""
+        return list(self.gen.parameters()) + list(self.disc.parameters())
+
+    def replica(self, rng: torch.Generator) -> "GANState":
+        """An independent copy of the models and moments with its own
+        ``rng``."""
+        return GANState(copy.deepcopy(self.gen), copy.deepcopy(self.disc),
+                        _copy_adam(self.g_opt), _copy_adam(self.d_opt),
+                        self.step, rng)
+
+
+def _copy_adam(s: AdamState) -> AdamState:
+    return AdamState([m.clone() for m in s.mu], [v.clone() for v in s.nu],
+                     s.count)
+
+
+def init_gan_state(cfg: CTGANConfig, cond_dim: int, data_dim: int, *,
+                   generator: torch.Generator, rng: torch.Generator,
+                   device: torch.device | str) -> GANState:
+    """Fresh generator and critic (initialized from ``generator``), zero
+    Adam moments, step 0; ``rng`` becomes the state's own generator."""
+    gen = init_generator(cfg, cond_dim, data_dim, generator=generator,
+                         device=device)
+    disc = init_discriminator(cfg, cond_dim, data_dim, generator=generator,
+                              device=device)
+    opt = adam(cfg.lr, cfg.b1, cfg.b2)
+    return GANState(gen, disc, opt.init(list(gen.parameters())),
+                    opt.init(list(disc.parameters())), 0, rng)
+
+
+class StepNoise(NamedTuple):
+    """Every random draw of one train step.  ``z_*`` (B, z_dim) normal;
+    ``u_*`` (B, data_dim) activation uniforms in the encoded layout;
+    ``keep_*`` one bool mask per critic hidden layer (see
+    :meth:`Discriminator.keep_shapes`); ``gp_eps`` (B/pac, 1, 1)."""
+    z_d: torch.Tensor
+    u_d: torch.Tensor
+    keep_d_fake: list[torch.Tensor]
+    keep_d_real: list[torch.Tensor]
+    gp_eps: torch.Tensor
+    z_g: torch.Tensor
+    u_g: torch.Tensor
+    keep_g: list[torch.Tensor]
+
+
+def draw_step_noise(rng: torch.Generator, cfg: CTGANConfig,
+                    disc: Discriminator, batch: int, data_dim: int,
+                    device: torch.device) -> StepNoise:
+    """One step's draws from ``rng``, in the order of the fields."""
+    def normal(n):
+        return torch.randn((n, cfg.z_dim), generator=rng, device=device)
+
+    def uniform(shape):
+        return torch.rand(shape, generator=rng, device=device)
+
+    def keep():
+        return [uniform(s) < 1 - cfg.dropout
+                for s in disc.keep_shapes(batch)]
+    z_d, u_d = normal(batch), uniform((batch, data_dim))
+    keep_fake, keep_real = keep(), keep()
+    gp_eps = uniform((batch // cfg.pac, 1, 1))
+    z_g, u_g = normal(batch), uniform((batch, data_dim))
+    return StepNoise(z_d, u_d, keep_fake, keep_real, gp_eps, z_g, u_g, keep())
+
+
+def make_train_steps(cfg: CTGANConfig, spans: Sequence[SpanInfo],
+                     cond_spans: Sequence[SpanInfo]):
+    """Returns ``step(state, batch, noise=None) -> metrics``: one critic and
+    one generator update of ``state`` in place on ``batch = (cond, mask,
+    real)``.  The metrics (``d_loss``, ``g_loss``, ``wgan``, ``gp``, ``ce``)
+    are 0-dim tensors on the device; nothing here waits for it."""
+    opt = adam(cfg.lr, cfg.b1, cfg.b2)
+    spans = tuple(spans)
+    cond_spans = tuple(cond_spans)
+
+    def step(state: GANState, batch, noise: StepNoise | None = None):
+        cond, mask, real = batch
+        gen, disc = state.gen, state.disc
+        dev = real.device
+        if noise is None:
+            noise = draw_step_noise(state.rng, cfg, disc, real.shape[0],
+                                    real.shape[1], dev)
+
+        # critic: fakes without a graph through the generator
+        with torch.no_grad():
+            logits = gen(noise.z_d, cond)
+            fake = apply_activations_fused(logits, spans, noise.u_d, cfg.tau)
+        fake_in = torch.cat([fake, cond], dim=1)
+        real_in = torch.cat([real, cond], dim=1)
+        y_fake = disc(fake_in, keep=noise.keep_d_fake)
+        y_real = disc(real_in, keep=noise.keep_d_real)
+        gp = gradient_penalty(disc, real_in, fake_in, noise.gp_eps)
+        wgan = torch.mean(y_fake) - torch.mean(y_real)
+        d_loss = wgan + cfg.gp_lambda * gp
+        d_params = list(disc.parameters())
+        d_grads = torch.autograd.grad(d_loss, d_params)
+        state.d_opt = opt.update(d_grads, state.d_opt, d_params)
+
+        # generator, against the critic just updated
+        logits = gen(noise.z_g, cond)
+        fake = apply_activations_fused(logits, spans, noise.u_g, cfg.tau)
+        y_fake = disc(torch.cat([fake, cond], dim=1), keep=noise.keep_g)
+        ce = conditional_loss(logits, cond, mask, cond_spans)
+        g_loss = -torch.mean(y_fake) + ce
+        g_params = list(gen.parameters())
+        g_grads = torch.autograd.grad(g_loss, g_params)
+        state.g_opt = opt.update(g_grads, state.g_opt, g_params)
+        state.step += 1
+        return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+                "wgan": wgan.detach(), "gp": gp.detach(), "ce": ce.detach()}
+
+    return step
 
 
 @torch.no_grad()

@@ -1,12 +1,17 @@
 """Carry state across from the JAX package, as numpy arrays.
 
-``generator_from_reference`` takes generator parameters in the flat
-checkpoint key format of the reference (``"res0/fc/w"``, ``"res0/bn_scale"``,
-``"out/b"``, ...; ``checkpoint/checkpoint.py``) with Linear weights in
-``(fan_in, fan_out)`` layout, and returns the port's :class:`Generator`.
-``encoders_from_reference`` takes per-column VGM arrays and label-encoder
-categories and returns the port's :class:`TableEncoders`.  With both, the
-two packages compute from the same state.
+The reference's checkpoints are flat ``.npz`` files keyed by tree path
+(``checkpoint/checkpoint.py``).  ``generator_from_reference`` and
+``discriminator_from_reference`` take one network's parameters in that
+key format (``"res0/fc/w"``, ``"res0/bn_scale"``, ``"fc0/b"``, ``"out/w"``,
+...) with Linear weights in ``(fan_in, fan_out)`` layout, and return the
+port's module; ``gan_state_from_reference`` takes a whole flattened
+``GANState`` (``".g_params/..."``, ``".d_params/..."``, ``".g_opt/.mu/..."``,
+``".g_opt/.nu/..."``, ``".g_opt/.count"``, the same for ``.d_opt``, and
+``".step"``) and returns the port's :class:`GANState` with both Adam
+states.  ``encoders_from_reference`` takes per-column VGM arrays and
+label-encoder categories and returns the port's :class:`TableEncoders`.
+With these, the two packages compute from the same state.
 """
 from __future__ import annotations
 
@@ -16,9 +21,45 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .gan.ctgan import Generator
+from .gan.ctgan import CTGANConfig, Discriminator, Generator
+from .gan.trainer import GANState
+from .optim import AdamState
 from .tabular.encoders import ColumnSpec, LabelEncoder, TableEncoders
 from .tabular.vgm import VGMParams
+
+
+def _layout(module: torch.nn.Module) -> list[tuple[torch.Tensor, str, bool]]:
+    """(parameter, reference key, transposed) in ``module.parameters()``
+    order: ``res.0.fc.weight`` is ``res0/fc/w`` (transposed), ``fc.1.bias``
+    is ``fc1/b``, ``res.0.bn_scale`` is ``res0/bn_scale``."""
+    out = []
+    for name, param in module.named_parameters():
+        parts: list[str] = []
+        for part in name.split("."):
+            if part.isdigit():
+                parts[-1] += part
+            else:
+                parts.append(part)
+        last = parts[-1]
+        parts[-1] = {"weight": "w", "bias": "b"}.get(last, last)
+        out.append((param, "/".join(parts), last == "weight"))
+    return out
+
+
+def _tensor(flat: Mapping[str, np.ndarray], key: str, transpose: bool,
+            like: torch.Tensor) -> torch.Tensor:
+    a = np.asarray(flat[key], np.float32)
+    a = np.array(a.T if transpose else a, order="C")
+    if tuple(like.shape) != a.shape:
+        raise ValueError(f"{key}: shape {a.shape} does not fit "
+                         f"{tuple(like.shape)}")
+    return torch.from_numpy(a).to(like.device)
+
+
+def _load(layout, flat: Mapping[str, np.ndarray]) -> None:
+    with torch.no_grad():
+        for param, key, transpose in layout:
+            param.copy_(_tensor(flat, key, transpose, param))
 
 
 def generator_from_reference(flat: Mapping[str, np.ndarray], *,
@@ -31,24 +72,61 @@ def generator_from_reference(flat: Mapping[str, np.ndarray], *,
     hidden = [np.asarray(flat[f"res{i}/fc/w"]).shape[1] for i in range(n_hidden)]
     data_dim = np.asarray(flat["out/w"]).shape[1]
     gen = Generator(w0.shape[0], hidden, data_dim, device=dev)
-
-    def put(param, key, transpose=False):
-        a = np.asarray(flat[key], np.float32)
-        a = np.array(a.T if transpose else a, order="C")
-        if tuple(param.shape) != a.shape:
-            raise ValueError(f"{key}: shape {a.shape} does not fit "
-                             f"{tuple(param.shape)}")
-        param.copy_(torch.from_numpy(a).to(dev))
-
-    with torch.no_grad():
-        for i, block in enumerate(gen.res):
-            put(block.fc.weight, f"res{i}/fc/w", transpose=True)
-            put(block.fc.bias, f"res{i}/fc/b")
-            put(block.bn_scale, f"res{i}/bn_scale")
-            put(block.bn_bias, f"res{i}/bn_bias")
-        put(gen.out.weight, "out/w", transpose=True)
-        put(gen.out.bias, "out/b")
+    _load(_layout(gen), flat)
     return gen
+
+
+def discriminator_from_reference(flat: Mapping[str, np.ndarray], *,
+                                 pac: int, dropout: float,
+                                 device: torch.device | str = "cuda"
+                                 ) -> Discriminator:
+    """The port's critic holding the reference's parameters; its widths are
+    read off the arrays' shapes, ``pac`` and ``dropout`` come from the
+    config (the first fan-in is ``in_dim * pac``)."""
+    dev = resolve_device(device)
+    n_hidden = len({k.split("/")[0] for k in flat if k.startswith("fc")})
+    fan_in = np.asarray(flat["fc0/w" if n_hidden else "out/w"]).shape[0]
+    if fan_in % pac:
+        raise ValueError(f"first fan-in {fan_in} is not a multiple of "
+                         f"pac={pac}")
+    hidden = [np.asarray(flat[f"fc{i}/w"]).shape[1] for i in range(n_hidden)]
+    disc = Discriminator(fan_in // pac, hidden, pac=pac, dropout=dropout,
+                         device=dev)
+    _load(_layout(disc), flat)
+    return disc
+
+
+def _adam_from_reference(flat: Mapping[str, np.ndarray], prefix: str,
+                         layout) -> AdamState:
+    def moments(name):
+        return [_tensor(flat, f"{prefix}/.{name}/{key}", transpose, param)
+                for param, key, transpose in layout]
+    return AdamState(moments("mu"), moments("nu"),
+                     int(np.asarray(flat[f"{prefix}/.count"])))
+
+
+def gan_state_from_reference(flat: Mapping[str, np.ndarray],
+                             cfg: CTGANConfig, *,
+                             rng: torch.Generator | None = None,
+                             device: torch.device | str = "cuda") -> GANState:
+    """The port's :class:`GANState` from a flattened reference ``GANState``:
+    both networks, both Adam states (moments transposed as their weights)
+    and ``step``.  The reference's PRNG key has no counterpart: the state
+    draws from ``rng`` (a fresh generator on ``device`` when not given)."""
+    dev = resolve_device(device)
+
+    def sub(prefix):
+        return {k[len(prefix):]: v for k, v in flat.items()
+                if k.startswith(prefix)}
+    gen = generator_from_reference(sub(".g_params/"), device=dev)
+    disc = discriminator_from_reference(sub(".d_params/"), pac=cfg.pac,
+                                        dropout=cfg.dropout, device=dev)
+    return GANState(
+        gen, disc,
+        _adam_from_reference(flat, ".g_opt", _layout(gen)),
+        _adam_from_reference(flat, ".d_opt", _layout(disc)),
+        int(np.asarray(flat[".step"])),
+        rng if rng is not None else torch.Generator(device=dev))
 
 
 def encoders_from_reference(schema: Sequence,

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("vgm_encode", "vgm_decode", "segment_activations")
+SOURCES = ("vgm_encode", "vgm_decode", "segment_activations",
+           "weighted_agg")
 # --fmad=false: no contraction into fused multiply-adds, so each kernel
 # rounds like its plain version; no --use_fast_math: IEEE expf/logf/tanhf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -112,8 +113,10 @@ def kernel_function(stem: str, name: str, argtypes: list):
 
 def check_cuda_inputs(name: str, device: torch.device, **tensors) -> None:
     """Raise unless every ``tensors[k] = (tensor, shape)`` is a contiguous
-    float32 CUDA tensor of that shape on ``device`` that needs no grad
-    (the kernels have no backward)."""
+    float32 CUDA tensor of that shape on ``device`` that needs no grad.
+    Every wrapper launches one kernel and records no autograd graph; the
+    one backward, of ``segment_activations``, is reached through
+    :func:`repro_torch.kernels.ops.segment_activations`."""
     if device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
                          f"{device}")
@@ -128,8 +131,11 @@ def check_cuda_inputs(name: str, device: torch.device, **tensors) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.requires_grad:
-            raise RuntimeError(f"{name}: {arg} requires grad, but this "
-                               "kernel has no backward yet")
+            raise RuntimeError(
+                f"{name}: {arg} requires grad, but the kernel wrappers record "
+                "no autograd graph: vgm_encode_table, vgm_decode_table and "
+                "weighted_agg have no backward, and segment_activations "
+                "takes its backward through ops.segment_activations")
 
 
 def launch(name: str, stem: str, fn, device: torch.device, *args) -> None:

@@ -5,9 +5,11 @@ any other tensor goes to the CUDA kernel, which launches (counted as
 ``<name>`` in ``_build.launch``) or raises.  There is no fallback from a
 failed build or launch to the plain version.
 
-``DISPATCH_COUNTS`` keeps the JAX package's key names, so the serving
-layer states the same contract: one ``vgm_decode_table`` dispatch per
-request, one ``segment_activations`` per generator forward.
+``DISPATCH_COUNTS`` keeps the JAX package's key names, so the port states
+the same contracts: one ``vgm_decode_table`` dispatch per request, one
+``segment_activations`` per generator forward, one
+``segment_activations_bwd`` per generator backward on the card, one
+``weighted_agg`` per merge tier.
 """
 from __future__ import annotations
 
@@ -19,14 +21,16 @@ import torch
 
 from . import ref
 from ._build import DISPATCH_COUNTS
-from .segment_activations import (build_span_layout, layout_tensors,
-                                  segment_activations_cuda)
+from .segment_activations import (SegmentActivations, build_span_layout,
+                                  layout_tensors, segment_activations_cuda)
 from .vgm_decode import vgm_decode_table_cuda
 from .vgm_encode import vgm_encode_table_cuda
+from .weighted_agg import weighted_agg_cuda
 
 __all__ = ["DISPATCH_COUNTS", "dispatch_scope", "stage_dispatches",
            "vgm_encode_table", "vgm_decode_table", "segment_activations",
-           "pack_segments"]
+           "pack_segments", "weighted_average_flat",
+           "weighted_average_edges"]
 
 
 @contextlib.contextmanager
@@ -101,15 +105,47 @@ def pack_segments(logits: torch.Tensor, spans: Sequence, uniforms: torch.Tensor)
 def segment_activations(logits: torch.Tensor, spans: Sequence,
                         uniforms: torch.Tensor, tau: float,
                         hard: bool = False) -> torch.Tensor:
-    """tanh + Gumbel-softmax over the whole encoded row in one dispatch;
-    forward only.  ``uniforms`` (N, dim) as in :func:`pack_segments`."""
+    """tanh + Gumbel-softmax over the whole encoded row in one dispatch.
+    ``uniforms`` (N, dim) as in :func:`pack_segments`.
+
+    Differentiable w.r.t. ``logits``, with the soft sample's gradient in
+    hard mode too (straight-through): on the CPU by autograd through the
+    plain version, on the card through :class:`SegmentActivations`, whose
+    backward is one ``segment_activations_bwd`` launch.  A forward that
+    needs no gradient launches the forward kernel alone."""
     layout, packed_x, packed_u = pack_segments(logits, spans, uniforms)
     t = layout_tensors(layout, logits.device)
     if _on_cpu(logits):
         DISPATCH_COUNTS["segment_activations_ref"] += 1
         out = ref.segment_activations_ref(packed_x, packed_u, t.kinds,
                                           float(tau), bool(hard))
+    elif packed_x.requires_grad:
+        out = SegmentActivations.apply(packed_x, packed_u, t.kinds,
+                                       float(tau), bool(hard))
     else:
         out = segment_activations_cuda(packed_x, packed_u, t.kinds,
                                        float(tau), bool(hard))
     return out.index_select(1, t.unpack_src)
+
+
+def weighted_average_flat(stacked: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+    """The federator merge: stacked (P, D) client vectors and (P,) weights
+    (normalized inside) -> (D,), in one dispatch counted as
+    ``weighted_agg`` (``weighted_agg_ref`` on the CPU)."""
+    if _on_cpu(stacked):
+        DISPATCH_COUNTS["weighted_agg_ref"] += 1
+        return ref.weighted_agg_ref(stacked, weights)
+    return weighted_agg_cuda(stacked[None], weights[None])[0]
+
+
+def weighted_average_edges(stacked: torch.Tensor,
+                           weights: torch.Tensor) -> torch.Tensor:
+    """The edge tier of the hierarchical merge: (E, C, D) per-edge client
+    stacks and (E, C) weights -> (E, D), every edge in ONE dispatch, counted
+    once as ``weighted_agg`` (``weighted_agg_ref`` on the CPU).  An edge
+    whose weights are all 0 merges to zeros."""
+    if _on_cpu(stacked):
+        DISPATCH_COUNTS["weighted_agg_ref"] += 1
+        return ref.weighted_agg_edges_ref(stacked, weights)
+    return weighted_agg_cuda(stacked, weights)

@@ -1,4 +1,4 @@
-"""Plain-PyTorch versions of the three CUDA kernels of the serving path.
+"""Plain-PyTorch versions of the port's CUDA kernels.
 
 Each function mirrors the signature and op order of its counterpart in the
 JAX package's ``kernels/ref.py``.  They are the CPU route of
@@ -63,7 +63,9 @@ def segment_activations_ref(packed_x: torch.Tensor, packed_u: torch.Tensor,
     packed_u (N, S*W) uniforms (padded lanes in (0, 1)); kinds (S, W) rows
     of 1.0 for tanh spans.  Returns packed activations (N, S*W).  The
     straight-through forward is ``(onehot - y) + y`` in that association,
-    as in the reference."""
+    as in the reference, with ``y`` detached in the first term so that
+    autograd passes the soft gradient (the reference's ``stop_gradient``).
+    """
     N = packed_x.shape[0]
     S, W = kinds.shape
     x = packed_x.reshape(N, S, W).float()
@@ -71,11 +73,44 @@ def segment_activations_ref(packed_x: torch.Tensor, packed_u: torch.Tensor,
     g = -torch.log(-torch.log(u + GUMBEL_EPS) + GUMBEL_EPS)
     z = (x + g) / tau
     # jax.nn.softmax's chain (max, exp, sum, divide), written out: torch's
-    # own softmax may multiply by the reciprocal of the sum instead
-    e = torch.exp(z - torch.amax(z, dim=2, keepdim=True))
+    # own softmax may multiply by the reciprocal of the sum instead.  The
+    # max takes no gradient there either.
+    e = torch.exp(z - torch.amax(z, dim=2, keepdim=True).detach())
     y = e / torch.sum(e, dim=2, keepdim=True)
     if hard:
         onehot = torch.nn.functional.one_hot(torch.argmax(y, dim=2), W).float()
-        y = (onehot - y) + y
+        y = (onehot - y.detach()) + y
     out = torch.where(kinds[None] > 0.5, torch.tanh(x), y)
     return out.reshape(N, S * W)
+
+
+def segment_activations_bwd_ref(packed_x: torch.Tensor,
+                                packed_u: torch.Tensor, kinds: torch.Tensor,
+                                ct: torch.Tensor, tau: float,
+                                hard: bool = False) -> torch.Tensor:
+    """The gradient w.r.t. ``packed_x`` of :func:`segment_activations_ref`
+    for the upstream gradient ``ct`` (N, S*W), by autograd.  Tanh lanes give
+    ``ct * (1 - tanh(x)^2)``, softmax lanes ``y * (ct - sum(ct * y)) / tau``
+    of the soft sample (in hard mode too), padded lanes 0."""
+    with torch.enable_grad():
+        x = packed_x.detach().requires_grad_()
+        out = segment_activations_ref(x, packed_u, kinds, tau, hard)
+        (grad,) = torch.autograd.grad(out, x, ct)
+    return grad
+
+
+def weighted_agg_ref(stacked: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """stacked (P, D), weights (P,) -> (D,): the weighted average with the
+    weights normalized as ``w / max(sum(w), 1e-12)``, in float32."""
+    w = weights.float() / torch.clamp(torch.sum(weights.float()), min=1e-12)
+    return torch.sum(stacked.float() * w[:, None], dim=0)
+
+
+def weighted_agg_edges_ref(stacked: torch.Tensor,
+                           weights: torch.Tensor) -> torch.Tensor:
+    """stacked (E, C, D), weights (E, C) -> (E, D): :func:`weighted_agg_ref`
+    for every edge; an edge whose weights are all 0 gives zeros."""
+    w = weights.float()
+    w = w / torch.clamp(torch.sum(w, dim=1, keepdim=True), min=1e-12)
+    return torch.sum(stacked.float() * w[:, :, None], dim=1)

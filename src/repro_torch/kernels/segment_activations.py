@@ -1,6 +1,7 @@
-"""Per-span generator-head activations: the CUDA kernel
-``csrc/segment_activations.cu``, its plain PyTorch version, and the
-``(S, Wmax)`` span packing both work on.
+"""Per-span generator-head activations: the CUDA kernels
+``csrc/segment_activations.cu`` (forward and backward), their plain
+PyTorch versions, the autograd function that joins the two kernels, and
+the ``(S, Wmax)`` span packing all of them work on.
 
 The generator's output row is a patchwork of spans: a tanh over each VGM
 alpha and a Gumbel-softmax (temperature ``tau``, straight-through one-hot
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .ref import segment_activations_ref  # noqa: F401  (the plain version)
+from .ref import (segment_activations_bwd_ref,  # noqa: F401 (plain versions)
+                  segment_activations_ref)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -95,9 +97,10 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
 def segment_activations_cuda(packed_x: torch.Tensor, packed_u: torch.Tensor,
                              kinds: torch.Tensor, tau: float,
                              hard: bool = False) -> torch.Tensor:
-    """Launch the activation kernel on the current stream (no
-    synchronize).  Forward only: raises on inputs that require grad rather
-    than drop their gradient.  Each row of ``kinds`` must be uniform (all
+    """Launch the forward activation kernel on the current stream (no
+    synchronize).  Records no autograd graph: raises on inputs that require
+    grad rather than drop their gradient (:class:`SegmentActivations` is
+    the differentiable route).  Each row of ``kinds`` must be uniform (all
     1.0 or all 0.0), as :func:`build_span_layout` makes it."""
     N = packed_x.shape[0]
     S, W = kinds.shape
@@ -114,3 +117,55 @@ def segment_activations_cuda(packed_x: torch.Tensor, packed_u: torch.Tensor,
                   packed_x.data_ptr(), packed_u.data_ptr(), kinds.data_ptr(),
                   out.data_ptr(), N, S, W, float(tau), int(bool(hard)))
     return out
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_float,
+                                         ctypes.c_void_p]
+
+
+def segment_activations_bwd_cuda(packed_x: torch.Tensor,
+                                 packed_u: torch.Tensor, kinds: torch.Tensor,
+                                 ct: torch.Tensor, tau: float) -> torch.Tensor:
+    """Launch the backward kernel on the current stream (no synchronize):
+    the gradient w.r.t. ``packed_x`` for the upstream gradient ``ct``, the
+    soft sample's in hard mode too (straight-through), so it takes no
+    ``hard``."""
+    N = packed_x.shape[0]
+    S, W = kinds.shape
+    device = packed_x.device
+    _build.check_cuda_inputs(
+        "segment_activations_bwd", device, packed_x=(packed_x, (N, S * W)),
+        packed_u=(packed_u, (N, S * W)), kinds=(kinds, (S, W)),
+        ct=(ct, (N, S * W)))
+    grad = torch.empty((N, S * W), dtype=torch.float32, device=device)
+    if N * S * W == 0:
+        return grad
+    fn = _build.kernel_function("segment_activations",
+                                "segment_activations_bwd_f32", _BWD_ARGTYPES)
+    _build.launch("segment_activations_bwd", "segment_activations", fn,
+                  device, packed_x.data_ptr(), packed_u.data_ptr(),
+                  kinds.data_ptr(), ct.data_ptr(), grad.data_ptr(), N, S, W,
+                  float(tau))
+    return grad
+
+
+class SegmentActivations(torch.autograd.Function):
+    """The packed activations on the card, differentiable w.r.t. the
+    logits: the forward kernel, and the backward kernel for the gradient.
+    ``packed_u`` and ``kinds`` take no gradient.  The kernels get detached
+    tensors; only the logits, uniforms and kinds are saved."""
+
+    @staticmethod
+    def forward(ctx, packed_x, packed_u, kinds, tau, hard):
+        x, u = packed_x.detach(), packed_u.detach()
+        ctx.save_for_backward(x, u, kinds)
+        ctx.tau = float(tau)
+        return segment_activations_cuda(x, u, kinds, tau, hard)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, u, kinds = ctx.saved_tensors
+        grad = segment_activations_bwd_cuda(x, u, kinds, ct.contiguous(),
+                                            ctx.tau)
+        return grad, None, None, None, None

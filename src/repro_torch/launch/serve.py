@@ -4,15 +4,14 @@
       --requests 16 --sizes 100,256,777 [--conditional] [--device cpu]
 
 The counterpart of the JAX package's ``run_tabular_server``
-(``launch/serve.py``, tabular mode): the tenant is built from
-``make_dataset`` + ``fit_centralized_encoders`` + a generator, registered
-with a ladder fitted to the expected sizes, warmed up, and a mixed-size
-trace drains through :class:`~repro_torch.serve.StreamingSynthesizer`.
-The reference first trains the generator with a short federated run
-(``run_federated``); that warm-up arrives with the port's training slice,
-so here the generator is freshly initialized from the seed (or carried
-over from the reference with :mod:`repro_torch.interop`).  The LLM mode of
-the reference is not ported.
+(``launch/serve.py``, tabular mode): a short Fed-TGAN run
+(``run_federated``, 3 quantity-skewed clients of ``adult``) trains the
+generator and fits the encoders, the table is registered with a ladder
+fitted to the expected sizes, warmed up, and a mixed-size trace drains
+through :class:`~repro_torch.serve.StreamingSynthesizer`.  ``make_tenant``
+builds a servable table with a freshly initialized generator instead,
+for serving runs that need no training.  The LLM mode of the reference
+is not ported.
 """
 from __future__ import annotations
 
@@ -23,11 +22,17 @@ import numpy as np
 import torch
 
 from ..configs import ctgan_paper
-from ..device import resolve_device
+from ..core.architectures import run_federated
+from ..device import resolve_device, seeded_generator
 from ..gan.ctgan import CTGANConfig, Generator, init_generator
 from ..serve import StreamingSynthesizer, TableRegistry, ladder_from_sizes
-from ..tabular import TableEncoders, fit_centralized_encoders, make_dataset
+from ..tabular import (TableEncoders, fit_centralized_encoders, make_dataset,
+                       partition_quantity_skew)
 from ..tabular.datasets import TabularDataset
+
+# the reference's warm-up model (launch/serve.py, run_tabular_server)
+WARMUP_CONFIG = CTGANConfig(batch_size=100, gen_hidden=(128, 128),
+                            disc_hidden=(128, 128), pac=10, z_dim=64)
 
 
 def make_tenant(name: str, *, n_rows: int | None = None,
@@ -52,21 +57,30 @@ def make_tenant(name: str, *, n_rows: int | None = None,
 
 def run_tabular_server(*, requests: int = 16,
                        sizes: tuple[int, ...] = (100, 256, 777),
+                       rounds: int = 4, local_steps: int = 2,
                        n_rows: int = 1500, conditional: bool = False,
                        scheduler: str = "fifo", seed: int = 0,
-                       cfg: CTGANConfig = ctgan_paper.CONFIG,
+                       cfg: CTGANConfig = WARMUP_CONFIG,
                        device: torch.device | str = "cuda",
                        quiet: bool = False) -> dict:
-    """Register ``adult`` (``n_rows`` rows), warm up, and serve a trace of
-    ``requests`` requests cycling through ``sizes``.  Returns the server
-    stats plus throughput fields."""
+    """Warm up a generator federatedly (``rounds`` x ``local_steps`` on
+    ``adult`` with ``n_rows`` rows over 3 quantity-skewed clients), register
+    it, warm up the server, and serve a trace of ``requests`` requests
+    cycling through ``sizes``.  Returns the server stats plus throughput
+    fields."""
     def say(msg):
         if not quiet:
             print(msg)
 
     dev = resolve_device(device)
-    ds, enc, gen, encoded = make_tenant("adult", n_rows=n_rows, cfg=cfg,
-                                        seed=seed, device=dev)
+    ds = make_dataset("adult", n_rows=n_rows, seed=seed)
+    parts = partition_quantity_skew(ds, 3, small_rows=200)
+    say(f"warm-up: {rounds} federated rounds on {ds.name} ({ds.n_rows} rows,"
+        f" {len(ds.schema)} cols) on {dev}")
+    res = run_federated(parts, ds.schema, cfg=cfg, rounds=rounds,
+                        local_steps=local_steps, seed=seed, device=dev)
+    enc, gen = res.encoders, res.final_g_params
+    encoded = enc.encode(ds.data, generator=seeded_generator(dev, seed, 7))
     registry = TableRegistry()
     registry.register(ds.name, cfg, enc, gen, ladder=ladder_from_sizes(sizes),
                       encoded=encoded, device=dev)
@@ -103,6 +117,8 @@ def main():
                     help="comma list of request row counts, cycled")
     ap.add_argument("--rows", type=int, default=1500,
                     help="rows of the registered table")
+    ap.add_argument("--rounds", type=int, default=4,
+                    help="federated warm-up rounds")
     ap.add_argument("--conditional", action="store_true",
                     help="draw condition vectors from the table's marginals")
     ap.add_argument("--scheduler", choices=("fifo", "continuous"),
@@ -111,6 +127,7 @@ def main():
     args = ap.parse_args()
     run_tabular_server(requests=args.requests,
                        sizes=tuple(int(s) for s in args.sizes.split(",")),
+                       rounds=args.rounds,
                        n_rows=args.rows, conditional=args.conditional,
                        scheduler=args.scheduler, device=args.device)
 

@@ -1,21 +1,79 @@
-"""Synthesis from a trained generator: encoded rows, then raw tables.
+"""Training rounds on the device, and synthesis from a trained generator.
+
+:class:`RoundEngine` runs a client's local round: ONE conditional
+``draw_batch`` of ``local_steps x batch`` rows on the device, then that
+many train steps, with no host copy in between.  ``clients_round`` runs
+every client's local round in turn (the reference vmaps them; a Python
+loop over the clients launches the same kernels, and ``torch.func.vmap``
+cannot trace a ctypes launch).
 
 ``sample_synthetic_conditional`` is CTGAN's conditional sampling mode (the
 condition vectors follow the table's training-by-sampling marginals);
-``synthesize_table`` runs either mode and decodes to a raw table.  The
-device-resident training round (``RoundEngine``) arrives with the
-training slice.
+``synthesize_table`` runs either mode and decodes to a raw table.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..gan.ctgan import CTGANConfig, Generator, apply_activations_fused
-from ..gan.trainer import sample_synthetic
-from ..tabular.encoders import TableEncoders
-from .sampler import SamplerDraws, SamplerTables, draw_conditions
+from ..gan.trainer import (GANState, StepNoise, make_train_steps,
+                           sample_synthetic)
+from ..tabular.encoders import SpanInfo, TableEncoders
+from .sampler import SamplerDraws, SamplerTables, draw_batch, draw_conditions
+
+
+class RoundEngine:
+    """Local rounds for one table schema: ``local_steps`` train steps on
+    batches of ``batch`` rows drawn on the device."""
+
+    def __init__(self, cfg: CTGANConfig, spans: Sequence[SpanInfo],
+                 cond_spans: Sequence[SpanInfo], *, batch: int,
+                 local_steps: int):
+        self.cfg = cfg
+        self.batch = int(batch)
+        self.local_steps = int(local_steps)
+        self.cond_dim = sum(s.width for s in cond_spans)
+        self.step_fn = make_train_steps(cfg, tuple(spans), tuple(cond_spans))
+
+    def local_round(self, state: GANState, tables: SamplerTables, *,
+                    draws: SamplerDraws | None = None,
+                    noise: Sequence[StepNoise] | None = None):
+        """E local steps of ``state`` (in place) on one ``draw_batch`` of
+        E x batch rows, split into E batches in order.  ``draws`` injects
+        the sampler's draws and ``noise`` one :class:`StepNoise` per step;
+        what is not injected comes from ``state.rng``.  Returns (state,
+        metrics stacked over the steps)."""
+        E, B = self.local_steps, self.batch
+        cond, mask, real = draw_batch(tables, E * B, self.cond_dim,
+                                      generator=state.rng, draws=draws)
+        metrics = []
+        for e in range(E):
+            rows = slice(e * B, (e + 1) * B)
+            metrics.append(self.step_fn(
+                state, (cond[rows], mask[rows], real[rows]),
+                None if noise is None else noise[e]))
+        return state, {k: torch.stack([m[k] for m in metrics])
+                       for k in metrics[0]}
+
+    def clients_round(self, states: Sequence[GANState],
+                      tables: Sequence[SamplerTables], *,
+                      draws: Sequence[SamplerDraws] | None = None,
+                      noise: Sequence[Sequence[StepNoise]] | None = None):
+        """Every client's :meth:`local_round`, client by client; ``draws``
+        and ``noise`` are per client when given.  Returns (states, metrics
+        stacked (clients, steps))."""
+        metrics = []
+        for p, (st, tb) in enumerate(zip(states, tables)):
+            _, m = self.local_round(
+                st, tb, draws=None if draws is None else draws[p],
+                noise=None if noise is None else noise[p])
+            metrics.append(m)
+        return states, {k: torch.stack([m[k] for m in metrics])
+                        for k in metrics[0]}
 
 
 @torch.no_grad()

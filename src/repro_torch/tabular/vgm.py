@@ -4,7 +4,8 @@ A PyTorch counterpart of the JAX package's ``tabular/vgm.py``: an EM-fitted
 Gaussian mixture with up to ``max_modes`` components per column, whose
 components below ``weight_threshold`` mixture weight are pruned.  The
 initial jitter of the means is injectable, so a test can hand both
-packages the same draw.
+packages the same draw.  ``sample_vgm`` and ``merge_client_vgms[_table]``
+are the federator's side of the §4.1 encoder initialization.
 """
 from __future__ import annotations
 
@@ -74,6 +75,59 @@ def fit_vgm(x: torch.Tensor, *, max_modes: int = 10, n_iter: int = 60,
     valid = weights > weight_threshold
     valid[torch.argmax(weights)] = True        # at least one valid mode
     return VGMParams(weights=weights, means=means, stds=stds, valid=valid)
+
+
+def sample_vgm(params: VGMParams, n: int, *,
+               generator: torch.Generator | None = None,
+               comp: torch.Tensor | None = None,
+               eps: torch.Tensor | None = None) -> torch.Tensor:
+    """``n`` draws from a fitted VGM on its device: a mode ``comp`` (n,)
+    from the valid modes' renormalized weights (a floor of 1e-12, as the
+    reference's log-weights), then ``means[comp] + stds[comp] * eps`` with
+    ``eps`` (n,) standard normal.  ``comp`` and ``eps`` are drawn from
+    ``generator`` (in that order) when not given."""
+    dev = params.means.device
+    w = torch.where(params.valid, params.weights, 0.0)
+    w = w / torch.sum(w)
+    if comp is None:
+        comp = torch.multinomial(torch.clamp(w, min=1e-12), n,
+                                 replacement=True, generator=generator)
+    if eps is None:
+        eps = torch.randn(n, generator=generator, device=dev)
+    comp = comp.to(dev)
+    return params.means[comp] + params.stds[comp] * eps.to(dev).float()
+
+
+def merge_client_vgms(client_params: Sequence[VGMParams],
+                      client_rows: Sequence[int], *, max_modes: int = 10,
+                      samples_cap: int = 20_000,
+                      generator: torch.Generator | None = None) -> VGMParams:
+    """The federator's global VGM of one continuous column (Fed-TGAN §4.1):
+    about ``samples_cap`` draws in all from the clients' VGMs, each
+    client's share proportional to its rows, and one VGM fitted to their
+    union.  No client row is touched."""
+    total = sum(client_rows)
+    parts = [sample_vgm(p, max(1, int(round(samples_cap * n_i
+                                               / max(total, 1)))),
+                        generator=generator)
+             for p, n_i in zip(client_params, client_rows)]
+    return fit_vgm(torch.cat(parts), max_modes=max_modes,
+                   generator=generator)
+
+
+def merge_client_vgms_table(client_params: Sequence[Sequence[VGMParams]],
+                            client_rows: Sequence[int], *,
+                            max_modes: int = 10, samples_cap: int = 20_000,
+                            generator: torch.Generator | None = None
+                            ) -> list[VGMParams]:
+    """:func:`merge_client_vgms` for every continuous column at once:
+    ``client_params[i][q]`` is client i's VGM of column q; returns one
+    global VGM per column.  A one-off on the federator, so the columns
+    are merged one after another."""
+    return [merge_client_vgms([c[q] for c in client_params], client_rows,
+                              max_modes=max_modes, samples_cap=samples_cap,
+                              generator=generator)
+            for q in range(len(client_params[0]) if client_params else 0)]
 
 
 def kernel_log_weights(params: VGMParams) -> torch.Tensor:

@@ -10,7 +10,12 @@ Encode and decode run the plain versions' own float32 operations in the
 same order with no fused multiply-add, so they must agree exactly.  The
 activation kernel sums each span's exponentials in lane order, PyTorch in
 its own reduction order: atol 2e-6 on values in [-1, 1], and the hard
-one-hots must be equal.
+one-hots must be equal.  Its backward, for upstream gradients in [-1, 1]:
+atol 3e-5, since ``y * (ct - sum(ct * y)) / tau`` multiplies the soft
+sample's 2e-6 by up to |ct - dot| / tau = 10.  The merge kernel sums the
+same products in client order; the plain version's normalizing sum of the
+weights may round an ulp apart: rtol 1e-6, atol 1e-7, and an all-zero
+edge gives exact +0.0.
 """
 import numpy as np
 import pytest
@@ -19,10 +24,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.kernels.segment_activations import \
-    segment_activations_cuda  # noqa: E402
+from repro_torch.kernels.segment_activations import (  # noqa: E402
+    segment_activations_bwd_cuda, segment_activations_cuda)
 from repro_torch.kernels.vgm_decode import vgm_decode_table_cuda  # noqa: E402
 from repro_torch.kernels.vgm_encode import vgm_encode_table_cuda  # noqa: E402
+from repro_torch.kernels.weighted_agg import weighted_agg_cuda  # noqa: E402
 from torch_kernel_inputs import (ACT_LAYOUTS, activation_inputs,  # noqa: E402
                                  as_tensors, decode_inputs, encode_inputs)
 
@@ -93,3 +99,63 @@ def test_wrappers_check_shapes(cuda):
     slots, m, s = _on(cuda, decode_inputs(5, 8, 2, 4, [4, 4]))
     with pytest.raises(TypeError, match="float32"):
         vgm_decode_table_cuda(slots.double(), m, s)
+
+
+@pytest.mark.parametrize("layout", ["ctgan", "width1", "one_span"])
+@pytest.mark.parametrize("hard", [False, True])
+def test_segment_activations_bwd_matches_plain(cuda, layout, hard):
+    px, pu, lay = activation_inputs(6, 4099, ACT_LAYOUTS[layout], 0.2)
+    x, u, kinds = _on(cuda, (px, pu, lay.kinds))
+    ct = torch.rand(x.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(6)) * 2 - 1
+    before = _build.DISPATCH_COUNTS["segment_activations_bwd"]
+    grad = segment_activations_bwd_cuda(x, u, kinds, ct, 0.2)
+    torch.cuda.synchronize()
+    assert _build.DISPATCH_COUNTS["segment_activations_bwd"] == before + 1
+    plain = tref.segment_activations_bwd_ref(x, u, kinds, ct, 0.2, hard)
+    torch.testing.assert_close(grad, plain, rtol=0, atol=3e-5)
+    assert not grad[:, torch.as_tensor(lay.pack_pad, device=cuda)].any()
+
+
+def test_ops_segment_activations_backward_runs_the_kernel(cuda):
+    """A forward that needs a gradient goes through the autograd function:
+    one forward and one backward launch, and the plain route's gradient."""
+    spans = ACT_LAYOUTS["ctgan"]
+    g = torch.Generator(cuda).manual_seed(7)
+    dim = spans[-1].start + spans[-1].width
+    logits = torch.randn((500, dim), device=cuda, generator=g)
+    u = torch.rand((500, dim), device=cuda, generator=g)
+    ct = torch.rand((500, dim), device=cuda, generator=g) * 2 - 1
+    x = logits.clone().requires_grad_()
+    with ops.dispatch_scope() as d:
+        torch.sum(ops.segment_activations(x, spans, u, 0.2, hard=True)
+                  * ct).backward()
+        torch.cuda.synchronize()
+    assert dict(d) == {"segment_activations": 1,
+                       "segment_activations_bwd": 1}
+    xc = logits.cpu().requires_grad_()
+    torch.sum(ops.segment_activations(xc, spans, u.cpu(), 0.2, hard=True)
+              * ct.cpu()).backward()
+    torch.testing.assert_close(x.grad.cpu(), xc.grad, rtol=0, atol=3e-5)
+
+
+@pytest.mark.parametrize("E,C,D", [(1, 5, 1_238_401), (2, 2, 100_003),
+                                   (3, 1, 7)])
+def test_weighted_agg_matches_plain(cuda, E, C, D):
+    g = torch.Generator(cuda).manual_seed(E * C)
+    stacked = torch.randn((E, C, D), device=cuda, generator=g)
+    w = torch.rand((E, C), device=cuda, generator=g)
+    if E > 1:
+        w[-1] = 0.0
+    before = _build.DISPATCH_COUNTS["weighted_agg"]
+    out = weighted_agg_cuda(stacked, w)
+    torch.cuda.synchronize()
+    assert _build.DISPATCH_COUNTS["weighted_agg"] == before + 1
+    for e in range(E):
+        torch.testing.assert_close(out[e], tref.weighted_agg_ref(stacked[e],
+                                                                 w[e]),
+                                   rtol=1e-6, atol=1e-7)
+    if E > 1:                      # the all-zero edge: exact +0.0
+        assert not out[-1].any() and not torch.signbit(out[-1]).any()
+    flat = ops.weighted_average_flat(stacked[0], w[0])
+    torch.testing.assert_close(flat, out[0], rtol=0, atol=0)

@@ -35,9 +35,10 @@ from repro.kernels.vgm_encode import \
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.segment_activations import (  # noqa: E402
-    build_span_layout, segment_activations_cuda)
+    build_span_layout, segment_activations_bwd_cuda, segment_activations_cuda)
 from repro_torch.kernels.vgm_decode import vgm_decode_table_cuda  # noqa: E402
 from repro_torch.kernels.vgm_encode import vgm_encode_table_cuda  # noqa: E402
+from repro_torch.kernels.weighted_agg import weighted_agg_cuda  # noqa: E402
 from repro_torch.tabular.encoders import SpanInfo  # noqa: E402
 from torch_kernel_inputs import (ACT_LAYOUTS, activation_inputs,  # noqa: E402
                                  as_tensors, decode_inputs, encode_inputs)
@@ -172,11 +173,17 @@ def test_span_layout_matches_reference():
         build_span_layout((SpanInfo(1, 2, "softmax", 0, True),))
 
 
-@pytest.mark.parametrize("call", ["encode", "decode", "activations"])
+@pytest.mark.parametrize("call", ["encode", "decode", "activations",
+                                  "activations_bwd", "weighted_agg"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A CUDA wrapper handed a CPU tensor raises before building anything:
     the plain route is chosen by the router, never by the wrapper."""
     calls = {
+        "activations_bwd": lambda: segment_activations_bwd_cuda(
+            torch.zeros(4, 6), torch.full((4, 6), 0.5), torch.zeros(2, 3),
+            torch.ones(4, 6), 0.2),
+        "weighted_agg": lambda: weighted_agg_cuda(torch.ones(1, 3, 8),
+                                                  torch.ones(1, 3)),
         "encode": lambda: vgm_encode_table_cuda(
             *as_tensors(*encode_inputs(0, 8, 2, 4, [4, 4]))),
         "decode": lambda: vgm_decode_table_cuda(

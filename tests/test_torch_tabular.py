@@ -214,12 +214,19 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+        "print(' '.join(m for m in sys.modules if m.startswith('repro_torch')))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(SRC)))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    imported = set(out.stdout.split())
+    assert len(imported) >= 35
+    for name in ("optim.optimizers", "gan.trainer", "kernels.weighted_agg",
+                 "tabular.metrics", "core.divergence", "core.encoding",
+                 "core.weighting", "core.aggregation", "core.comm_model",
+                 "core.architectures", "fed.merge", "fed.setup",
+                 "fed.program", "interop"):
+        assert f"repro_torch.{name}" in imported, name
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():

@@ -1,0 +1,76 @@
+"""The JAX package's random draws, reproduced from its key splits as numpy
+and handed to the port as tensors, so that both packages compute from the
+same noise.  Each helper names the reference code whose splits it follows.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro_torch.gan.trainer import StepNoise
+from repro_torch.synth import SamplerDraws
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def activation_uniforms(key, spans, n, dim):
+    """``kernels/ops.py:segment_activations``: span i draws
+    ``uniform(split(key, S)[i], (n, w_i))``; laid out in the encoded row,
+    tanh spans 0.5."""
+    u = np.full((n, dim), 0.5, np.float32)
+    for s, k in zip(spans, jax.random.split(key, len(spans))):
+        if s.activation != "tanh":
+            u[:, s.start:s.start + s.width] = np.asarray(
+                jax.random.uniform(k, (n, s.width), jnp.float32))
+    return torch.from_numpy(u)
+
+
+def sampler_draws(key, n, n_spans):
+    """``synth/sampler.py:draw_batch``: span ids, category and row
+    uniforms from ``split(key, 3)``."""
+    k_span, k_cat, k_row = jax.random.split(key, 3)
+    return SamplerDraws(t(jax.random.randint(k_span, (n,), 0, n_spans)),
+                        t(jax.random.uniform(k_cat, (n,))),
+                        t(jax.random.uniform(k_row, (n,))))
+
+
+def dropout_keeps(key, cfg, batch):
+    """``gan/ctgan.py:discriminator_forward``: layer i keeps
+    ``bernoulli(split(key, L)[i], 1 - dropout, (batch/pac, h_i))``."""
+    keys = jax.random.split(key, len(cfg.disc_hidden))
+    return [t(jax.random.bernoulli(k, 1 - cfg.dropout,
+                                   (batch // cfg.pac, h)))
+            for k, h in zip(keys, cfg.disc_hidden)]
+
+
+def step_noise(rng, cfg, spans, batch, dim):
+    """``gan/trainer.py:make_train_steps``: one step's draws from the
+    state's key, and the key the state carries on.  ``split(rng, 3)`` ->
+    (next, critic, generator); the critic's key splits 5 ways (z,
+    activations, two dropouts, GP), the GP's 2 ways (eps, unused); the
+    generator's 3 ways (z, activations, dropout)."""
+    nxt, kd, kg = jax.random.split(rng, 3)
+    kz, ka, kd1, kd2, kgp = jax.random.split(kd, 5)
+    keps, _ = jax.random.split(kgp)
+    gz, ga, gd = jax.random.split(kg, 3)
+    noise = StepNoise(
+        z_d=t(jax.random.normal(kz, (batch, cfg.z_dim))),
+        u_d=activation_uniforms(ka, spans, batch, dim),
+        keep_d_fake=dropout_keeps(kd1, cfg, batch),
+        keep_d_real=dropout_keeps(kd2, cfg, batch),
+        gp_eps=t(jax.random.uniform(keps, (batch // cfg.pac, 1, 1))),
+        z_g=t(jax.random.normal(gz, (batch, cfg.z_dim))),
+        u_g=activation_uniforms(ga, spans, batch, dim),
+        keep_g=dropout_keeps(gd, cfg, batch))
+    return noise, nxt
+
+
+def round_noise(rng, cfg, spans, batch, dim, steps):
+    """``steps`` consecutive steps' :func:`step_noise` of one client."""
+    out = []
+    for _ in range(steps):
+        noise, rng = step_noise(rng, cfg, spans, batch, dim)
+        out.append(noise)
+    return out
