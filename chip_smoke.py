@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and federated training paths once on
-one CUDA card.
+"""Drive the PyTorch port's serving, federated CTGAN training and federated
+LM pre-training paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,7 @@ From the root of the repository.  Imports only ``repro_torch`` (from
 which stops the run with a non-zero exit on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the four CUDA sources from ``src/repro_torch/csrc`` (one nvcc per
+2. build the five CUDA sources from ``src/repro_torch/csrc`` (one nvcc per
    source, in parallel) into ``build/repro_torch``;
 3. register two tenants at full width: ``adult`` and ``intrusion`` from
    ``make_dataset`` at the paper's 40,000 rows, encoders fitted on the card,
@@ -39,20 +39,38 @@ which stops the run with a non-zero exit on failure:
    noise, TF32 off;
 9. the card's synthesis path against the port's CPU path on a small input
    with the same injected noise: equal categories, close continuous values;
-10. each kernel at its main path's shapes against its plain PyTorch version
+10. federated LM pre-training at full width and depth: smollm-135m (30
+   layers, d_model 576, 9 query and 3 KV heads of 64, vocab 49,152, bf16,
+   remat) with attention through the flash kernels, 4 non-IID clients x 2
+   rounds x 2 local steps of batch 4 x 2,048 tokens, ``fedtgan`` weights,
+   through ``repro_torch.launch.train.run_federated``: finite losses,
+   clients bit-identical after each merge, per round 480 flash forward
+   launches (30 layers x 8 local steps, twice under remat), 240 dq, 240
+   dk/dv and one ``weighted_agg``; seconds per round, tokens/s and the
+   card's busy share of one more round;
+11. the per-column ``encode_loop`` on ``adult`` at 40,000 rows: one
+   single-column ``vgm_encode`` launch per continuous column, equal to the
+   one-dispatch ``encode`` with the same Gumbel noise;
+12. the full-width smollm-135m's logits through the flash kernels against
+   the plain ``gqa_attention`` route, float32, TF32 off;
+13. each kernel at its main path's shapes against its plain PyTorch version
    on the card, with its time, the plain version's time, its bound and,
-   where one PyTorch call computes the same function, that call's time.
+   where one PyTorch call computes the same function, that call's time;
+   the flash kernels also on a ragged and a sliding-window case against
+   autograd through the plain full-matrix attention.
 
-Phases 3-5 are the serving main path and phase 6 the training main path:
-the kernel launch counters are set to 0 just before each and read just
-after, every kernel of the path must have launched, and no plain-version
-counter may move.  The last two lines of output are the ``kernels`` JSON
-object and ``{"ok": true, "device": {...}}``; a longer record goes to
-``chiprun_out/chip_smoke.json``.
+Phases 3-5 are the serving main path, phase 6 the CTGAN training main
+path, phase 10 the LM main path and phase 11 the path of the single-column
+encode: the kernel launch counters are set to 0 just before each and read
+just after, every kernel of the path must have launched, and no
+plain-version counter may move.  The last two lines of output are the
+``kernels`` JSON object and ``{"ok": true, "device": {...}}``; a longer
+record goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -64,14 +82,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside the
-# tensor cores ops/s.  The kernels are float32 elementwise work.
+# tensor cores ops/s (the tabular kernels' float32 elementwise work), dense
+# bf16 tensor-core ops/s (the flash kernels' products on bf16 inputs).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 SIZES = (100, 777, 4096)
 N_ROWS = 40_000
 FED_CLIENTS, FED_ROUNDS, FED_STEPS = 5, 4, 2
 F32_EPS = 2.0 ** -23
+LM_CLIENTS, LM_ROUNDS, LM_STEPS, LM_BATCH, LM_SEQ = 4, 2, 2, 4, 2048
 
 
 def fail(msg: str):
@@ -102,48 +123,85 @@ def cuda_ms(fn, reps: int = 20, repeats: int = 7) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20, repeats: int = 5, *, before=None,
-              exclude: str | None = None) -> tuple[float, list]:
-    """Device time per call: the durations of the CUDA kernels that the
-    profiler saw in a window of ``reps`` calls, summed and divided by
-    ``reps``; median over ``repeats`` windows.  Unlike back-to-back CUDA
-    events, this leaves out the host's launch overhead.  ``before`` runs
-    ahead of every call, and kernels whose name contains ``exclude`` are
-    not counted.  Also returns the names of the kernels seen."""
+def kernel_ms(fn, reps: int = 20, repeats: int = 5, *, before=None) -> float:
+    """Device time per call of ``fn``: CUDA events around ``reps`` calls
+    queued behind a spin kernel (``torch.cuda._sleep``) that holds the
+    card until the host has queued all of them, so the span holds their
+    device work and no host launch gaps; median over ``repeats`` windows.
+    ``before`` runs ahead of every call, and its own time, measured alike,
+    is subtracted.  (Summing the profiler's kernel records over a window
+    read up to 45% low late in a long run: records were dropped.)"""
+    import torch
+
+    def span(f):
+        f()
+        torch.cuda.synchronize()
+        cycles, times = 10_000_000, []
+        while len(times) < repeats:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            for _ in range(reps):
+                f()
+            stop.record()
+            queued_in_time = not start.query()
+            stop.synchronize()
+            if queued_in_time:
+                times.append(start.elapsed_time(stop) / reps)
+            else:              # the card caught up with the host: spin longer
+                cycles *= 4
+        return statistics.median(times)
+
+    if before is None:
+        return span(fn)
+
+    def both():
+        before()
+        fn()
+    return span(both) - span(before)
+
+
+def device_busy(fn, repeats: int = 1, top: int = 8) -> tuple[float, list]:
+    """Device time of one call of ``fn``: the durations of its kernels and
+    copies under a CUDA-only profiler, median over ``repeats`` calls; and
+    the ``top`` kernels of the last call by device time, as (name, ms,
+    launches).  It leaves out the gaps between kernels, so over a drain or
+    a round it is the card's busy time.  Tracing only the device keeps the
+    profiler cheap for a call of tens of thousands of operations, and its
+    records complete late in a long run, where a CPU and CUDA trace's
+    kernel records came back incomplete."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    times, names = [], set()
+    totals, kern = [], []
     for _ in range(repeats):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if before is not None:
-                    before()
-                fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and (exclude is None or exclude not in e.key)]
-        times.append(sum(e.self_device_time_total for e in kern) / reps / 1e3)
-        names.update(e.key[:60] for e in kern)
-    return statistics.median(times), sorted(names)
+                if e.device_type == DeviceType.CUDA]
+        totals.append(sum(e.self_device_time_total for e in kern) / 1e3)
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    return statistics.median(totals), [
+        (e.key[:70], e.self_device_time_total / 1e3, e.count)
+        for e in kern[:top]]
 
 
 def cold_ms(fn) -> float:
-    """Device time per call (:func:`device_ms`) when every call follows a
+    """Device time per call (:func:`kernel_ms`) when every call follows a
     128 MB write that evicts the 50 MB L2 cache, so that its inputs come
     from device memory; the write itself is not counted."""
     import torch
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
-    return device_ms(fn, before=flush.zero_, exclude="FillFunctor")[0]
+    return kernel_ms(fn, before=flush.zero_)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             peak_ops: float = PEAK_F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -257,7 +315,7 @@ def federated_phase(dev, cfg, ds) -> dict:
     one_round()
     torch.cuda.synchronize()
     wall = time.perf_counter() - ts
-    busy_ms, seen = device_ms(one_round, reps=1, repeats=3)
+    busy_ms, top = device_busy(one_round, repeats=3)
     busy = busy_ms / (wall * 1e3)
     print(f"one global round on the staged federation: {wall * 1e3:.3f} ms "
           f"wall, device busy {busy_ms:.3f} ms (idle share {1 - busy:.3f})")
@@ -271,7 +329,7 @@ def federated_phase(dev, cfg, ds) -> dict:
             "eval_s": eval_s, "report": rep, "launches": launches,
             "weights": w.tolist(), "params": {"G": n_gen, "D": n_disc},
             "round_wall_ms": wall * 1e3, "round_busy_ms": busy_ms,
-            "round_busy_share": busy, "kernels_seen": seen,
+            "round_busy_share": busy, "top_kernels": top,
             "comm_bytes_per_round": res.comm_bytes_per_round,
             "stack": stack, "fe": fe}
 
@@ -385,6 +443,218 @@ def step_phase(dev) -> dict:
             "param_within_2e-6": within}
 
 
+def lm_phase(dev) -> dict:
+    """Phase 10, the LM main path: ``run_federated`` at smollm-135m's full
+    width and depth with the flash kernels, then one more global round on
+    its states for the card's busy share."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDatasetSpec, client_token_streams
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import (federated_round, lm_optimizer,
+                                          run_federated)
+    from repro_torch.models import Transformer, make_train_step, tree_leaves
+
+    cfg = dataclasses.replace(get_config("smollm-135m"), use_flash_kernel=True)
+    per_round = LM_CLIENTS * LM_STEPS
+    want = {"flash_attention_fwd": cfg.n_layers * per_round
+            * (2 if cfg.remat else 1),
+            "flash_attention_dq": cfg.n_layers * per_round,
+            "flash_attention_dkv": cfg.n_layers * per_round,
+            "weighted_agg": 1}
+    marks, round_counts, losses = [], [], []
+
+    def on_round(r, states, m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts = ops.DISPATCH_COUNTS.copy()
+        round_counts.append(counts)
+        ref = tree_leaves(states[0].params)
+        check(all(torch.equal(a, b) for st in states[1:]
+                  for a, b in zip(ref, tree_leaves(st.params), strict=True)),
+              f"LM round {r}: clients differ after the merge")
+        lv = m["loss"].cpu().numpy()
+        check(lv.shape == (LM_CLIENTS, LM_STEPS) and np.isfinite(lv).all(),
+              f"LM round {r}: losses {lv}")
+        losses.append(float(lv.mean()))
+        marks[-1] = (marks[-1], time.perf_counter())      # (done, checked)
+
+    ops.DISPATCH_COUNTS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    states, hist, w = run_federated(
+        cfg, clients=LM_CLIENTS, rounds=LM_ROUNDS, local_steps=LM_STEPS,
+        batch=LM_BATCH, seq=LM_SEQ, lr=3e-4, iid=False, weighting="fedtgan",
+        device=dev, on_round=on_round)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = ops.DISPATCH_COUNTS.copy()
+    refs = {k: v for k, v in counts.items() if k.endswith("_ref")}
+    check(not refs, f"LM: the plain route ran on the card: {refs}")
+    prev: dict = {}
+    for r, c in enumerate(round_counts):
+        got = {k: c.get(k, 0) - prev.get(k, 0) for k in want}
+        check(got == want, f"LM round {r}: launches {got}, expected {want}")
+        prev = c
+    check(abs(float(w.sum()) - 1.0) < 1e-5, f"LM weights sum to {w.sum()}")
+    start = t0
+    round_s = []
+    for done, checked in marks:
+        round_s.append(done - start)
+        start = checked
+    tokens = LM_CLIENTS * LM_STEPS * LM_BATCH * LM_SEQ
+    n_params = sum(t.numel() for t in tree_leaves(states[0].params))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"LM run_federated: smollm-135m, {n_params} parameters, "
+          f"{LM_CLIENTS} non-IID clients x {LM_ROUNDS} rounds x {LM_STEPS} "
+          f"local steps of {LM_BATCH} x {LM_SEQ} tokens, bf16, remat "
+          f"{cfg.remat}; client weights {np.round(w, 6).tolist()}; mean loss "
+          f"per round {[round(x, 4) for x in losses]}; seconds per round "
+          f"{[round(x, 3) for x in round_s]} (the first includes the run's "
+          f"setup: data, weights, init); {tokens / round_s[-1]:.0f} tokens/s "
+          f"in the last round; launches per round {want} (gated); clients "
+          f"bit-identical after each merge; peak memory {peak_gb:.2f} GB; "
+          f"{run_s:.2f} s in all")
+
+    # one more global round on the trained states, for the busy share
+    step_fn = make_train_step(Transformer(cfg), lm_optimizer(3e-4))
+    streams = client_token_streams(TokenDatasetSpec(cfg.vocab, LM_SEQ),
+                                   LM_CLIENTS, LM_BATCH, LM_STEPS, iid=False,
+                                   seed=7)
+    w_dev = torch.as_tensor(w, device=dev)
+
+    def one_round():
+        return federated_round(states, step_fn, streams, w_dev)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    one_round()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    busy_ms, top = device_busy(one_round)
+    check(busy_ms > 0.0, "LM: the profiler saw no device time")
+    busy = busy_ms / (wall * 1e3)
+    print(f"LM one more global round: {wall * 1e3:.1f} ms wall, "
+          f"{tokens / wall:.0f} tokens/s, device busy {busy_ms:.1f} ms "
+          f"(idle share {1 - busy:.3f}); top kernels by device time: "
+          + "; ".join(f"{n} {ms:.1f} ms x{c}" for n, ms, c in top))
+    del states, step_fn
+    torch.cuda.empty_cache()
+    return {"run_s": run_s, "round_s": round_s, "losses": losses,
+            "weights": w.tolist(), "params": n_params,
+            "launches_per_round": want, "launches": dict(counts),
+            "tokens_per_round": tokens,
+            "tokens_per_s_last_round": tokens / round_s[-1],
+            "extra_round_wall_ms": wall * 1e3, "extra_round_busy_ms": busy_ms,
+            "extra_round_busy_share": busy, "peak_memory_gb": peak_gb,
+            "top_kernels": top}
+
+
+def encode_loop_phase(dev, enc, ds) -> dict:
+    """Phase 11: the per-column ``encode_loop`` (the single-column kernel's
+    path) against the one-dispatch ``encode``, on the same noise."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    plan = enc.plan()
+    g = plan.draw_gumbel(ds.n_rows, torch.Generator(dev).manual_seed(9))
+    fused = enc.encode(ds.data, gumbel=g)
+    ops.DISPATCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    looped = enc.encode_loop(ds.data, gumbel=g)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(ops.DISPATCH_COUNTS)
+    n_cont = len(plan.cont_cols)
+    check(counts == {"vgm_encode": n_cont},
+          f"encode_loop launches {counts}, expected {n_cont} vgm_encode")
+    check(torch.equal(looped, fused), "encode_loop differs from encode")
+    print(f"encode_loop adult: {ds.n_rows} rows, {n_cont} vgm_encode "
+          f"launches (one per continuous column), equal to encode, "
+          f"{dt * 1e3:.2f} ms")
+    return {"launches": counts, "seconds": dt}
+
+
+def logits_phase(dev) -> dict:
+    """Phase 12: the full-width smollm-135m's logits through the flash
+    kernels against the plain ``gqa_attention`` route, float32."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+
+    cfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32")
+    params = Transformer(cfg).init(seed=5, device=dev)
+    tk = torch.randint(0, cfg.vocab, (1, LM_SEQ), device=dev,
+                       generator=torch.Generator(dev).manual_seed(5))
+    batch = {"tokens": tk, "labels": tk}
+    with torch.no_grad():
+        plain, _ = Transformer(cfg).forward(params, batch)
+        flash, _ = Transformer(dataclasses.replace(
+            cfg, use_flash_kernel=True)).forward(params, batch)
+    torch.cuda.synchronize()
+    err = float((flash - plain).abs().max())
+    scale = float(plain.abs().max())
+    tol = 1e-5 * max(1.0, scale) * cfg.n_layers
+    check(bool(torch.isfinite(flash).all()), "flash logits not finite")
+    check(err <= tol, f"flash vs plain logits: max abs err {err:.3g} > "
+          f"{tol:.3g}")
+    print(f"smollm-135m logits (1 x {LM_SEQ} tokens, float32, TF32 off): "
+          f"flash kernels vs gqa_attention max abs err {err:.3g} (tol "
+          f"{tol:.3g}: 1e-5 of max|logit| {scale:.3g} per layer, products "
+          f"summed in another order in each of {cfg.n_layers} layers)")
+    del params
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "tol": tol, "max_abs_logit": scale}
+
+
+def flash_route_checks(dev) -> dict:
+    """Phase 13's extra flash cases: ``ops.flash_attention`` on the card
+    (GQA expansion, padding, the three kernels) against autograd through
+    the plain full-matrix attention, float32, on a ragged and a
+    sliding-window case."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+
+    out = {}
+    for name, S, window in (("ragged S=1000", 1000, None),
+                            ("window 256, S=2048", 2048, 256)):
+        g = torch.Generator(dev).manual_seed(S)
+        q = torch.randn((2, 9, S, 64), device=dev, generator=g)
+        k, v = (torch.randn((2, 3, S, 64), device=dev, generator=g)
+                for _ in range(2))
+        ct = torch.randn((2, 9, S, 64), device=dev, generator=g)
+        a = [t.clone().requires_grad_() for t in (q, k, v)]
+        b = [t.clone().requires_grad_() for t in (q, k, v)]
+        with ops.dispatch_scope() as d:
+            o_k = ops.flash_attention(*a, causal=True, window=window)
+            torch.sum(o_k * ct).backward()
+            torch.cuda.synchronize()
+        check(dict(d) == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
+                          "flash_attention_dkv": 1},
+              f"flash {name}: launches {dict(d)}")
+        o_p = plain.attention_ref(*b, causal=True, window=window)
+        torch.sum(o_p * ct).backward()
+        errs = {"out": float((o_k - o_p).abs().max().detach())}
+        tols = {"out": 2e-5}
+        for n, x, y in zip(("dq", "dk", "dv"), a, b):
+            errs[n] = float((x.grad - y.grad).abs().max())
+            tols[n] = 1e-4 * max(1.0, float(y.grad.abs().max()))
+        for n in errs:
+            check(errs[n] <= tols[n], f"flash {name}: {n} max abs err "
+                  f"{errs[n]:.3g} > {tols[n]:.3g}")
+        print(f"flash route {name} (2, 9/3 heads, 64), float32, vs autograd "
+              f"through the plain attention: max abs err "
+              + ", ".join(f"{n} {errs[n]:.3g} (tol {tols[n]:.3g})"
+                          for n in errs))
+        out[name] = errs
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -408,6 +678,13 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
     record: dict = {}
+    phase_s: dict = {}
+    mark = [time.perf_counter()]
+
+    def lap(name):     # wall seconds of each phase, for the record
+        now = time.perf_counter()
+        phase_s[name] = round(now - mark[0], 2)
+        mark[0] = now
 
     # ---- 1. the card --------------------------------------------------
     smi = subprocess.run(
@@ -430,6 +707,7 @@ def main() -> int:
                 _build.build_log(stem).splitlines() if "Used" in ln]
         print(f"  ptxas {stem}: {'; '.join(used) or 'built earlier'}")
     record["build_s"] = build_s
+    lap("card and build")
 
     # ---- 3-5. the main path -------------------------------------------
     cfg = ctgan_paper.CONFIG
@@ -500,8 +778,8 @@ def main() -> int:
         # the device's busy share: profiler device time (kernels and
         # copies) of the same trace drained again, over the wall time of
         # the unprofiled drain above
-        busy_ms, _ = device_ms(lambda: (submit_trace(server), server.serve()),
-                               reps=1, repeats=3)
+        busy_ms, _ = device_busy(lambda: (submit_trace(server),
+                                          server.serve()), repeats=3)
         busy = busy_ms / (dt * 1e3)
         serving[sched] = {"requests": len(resps), "rows": rows,
                           "seconds": dt, "rows_per_s": rows / dt,
@@ -542,6 +820,7 @@ def main() -> int:
           f"a kernel of the path never launched: {launches}")
     check(not ref_calls, f"the plain route ran on the card: {ref_calls}")
     record.update(serving=serving, main_path_s=main_s, launches=launches)
+    lap("serving")
 
     # ---- 6. Fed-TGAN training, the second main path --------------------
     from repro_torch.tabular import make_dataset
@@ -549,12 +828,15 @@ def main() -> int:
     fed = federated_phase(dev, cfg, fed_ds)
     stack, fe = fed.pop("stack"), fed.pop("fe")
     record["federated"] = fed
+    lap("CTGAN training")
 
     # ---- 7. hierarchical merge -----------------------------------------
     record["edges"] = edges_phase(dev, cfg, fed_ds, stack, fe.weights)
+    lap("edges")
 
     # ---- 8. one train step, card against CPU ---------------------------
     record["step_card_vs_cpu"] = step_phase(dev)
+    lap("step card vs CPU")
 
     # ---- 9. card path against the CPU path on a small input -----------
     ds, enc, gen, encoded = tenants["adult"]
@@ -592,7 +874,23 @@ def main() -> int:
               f"equal, continuous max relative error {err:.3g} (<= 1e-4: "
               "matrix products sum in another order on the card)")
 
-    # ---- 10. each kernel at the main path's shapes --------------------
+    lap("synthesis card vs CPU")
+
+    # ---- 10. federated LM pre-training, the third main path -----------
+    record["lm"] = lm_phase(dev)
+    lap("LM training")
+
+    # ---- 11. encode_loop, the path of the single-column encode ---------
+    ds_a, enc_a, _, _ = tenants["adult"]
+    record["encode_loop"] = encode_loop_phase(dev, enc_a, ds_a)
+    lap("encode_loop")
+
+    # ---- 12. the full-width LM's logits, flash against plain -----------
+    record["lm_logits"] = logits_phase(dev)
+    lap("LM logits")
+
+    # ---- 13. each kernel at the main path's shapes --------------------
+    record["flash_route"] = flash_route_checks(dev)
     ds, enc, gen, _ = tenants["intrusion"]
     plan, dplan = enc.plan(), enc.decode_plan()
     x = torch.as_tensor(np.ascontiguousarray(ds.data[:, list(plan.cont_cols)]),
@@ -645,6 +943,64 @@ def main() -> int:
     St, Wt = tlayout.kinds.shape
     fed_launches = record["federated"]["launches"]
 
+    # the flash kernels at the LM path's shapes: heads expanded, bf16
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_dkv_cuda,
+                                                     flash_dq_cuda,
+                                                     flash_fwd_cuda)
+    from repro_torch.kernels.vgm_encode import vgm_encode_cuda
+    lm_launches = record["lm"]["launches"]
+    BH, Sf, hd = LM_BATCH * 9, LM_SEQ, 64
+    gf = torch.Generator(dev).manual_seed(13)
+    fq, fk, fv, fdo = (torch.randn((LM_BATCH, 9, Sf, hd), device=dev,
+                                   generator=gf).bfloat16() for _ in range(4))
+    mask = {"causal": True, "window": None, "kv_len": Sf}
+    fout, flse = flash_fwd_cuda(fq, fk, fv, **mask)
+    fdelta = torch.sum(fdo.float() * fout.float(), dim=-1)
+    bwd_args = (fq, fk, fv, fdo, flse, fdelta)
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (fq, fk, fv))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+
+    def lib_bwd():   # the library's dq + dk/dv pair
+        return torch.autograd.grad(lib_out, (lq, lk, lv), fdo,
+                                   retain_graph=True)
+    pairs = BH * Sf * (Sf + 1) // 2          # visible (query, key) pairs
+    elems = BH * Sf * hd
+
+    def close_bf16(a, b):    # one bfloat16 ulp where f32 results straddle
+        d = (a.float() - b.float()).abs()
+        return bool((d <= 2 ** -7 * b.float().abs() + 1e-6).all()), float(d.max())
+
+    def cmp_fwd(got, want):
+        ok_o, e_o = close_bf16(got[0], want[0])
+        e_l = float((got[1] - want[1]).abs().max())
+        return (max(e_o, e_l), ok_o and e_l <= 2e-5,
+                "out rtol 2^-7 (one bf16 ulp), lse 2e-5")
+
+    def cmp_grads(got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        tols = [1e-4 * max(1.0, float(b.abs().max())) for b in want]
+        return (max(errs), all(e <= t for e, t in zip(errs, tols)),
+                "1e-4 of max|grad| " + ", ".join(f"{t:.3g}" for t in tols))
+
+    # the single-column encode at the table's shape: intrusion's first
+    # continuous column, 40,000 rows
+    j0 = plan.cont_cols[0]
+    p0 = enc.vgms[j0]
+    from repro_torch.tabular.vgm import kernel_log_weights
+    cx = x[:, 0].contiguous()
+    K0 = int(p0.means.shape[0])
+    cg = gumbel[:, :K0].contiguous()
+    col_args = (cx, p0.means.float().contiguous(), p0.stds.float().contiguous(),
+                kernel_log_weights(p0).contiguous(), cg)
+
+    def cmp_exact(got, want):
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        return max(errs), max(errs) == 0.0, "0 (exact)"
+
     cases = [
         # the Pallas call it replaces, launches on its main path, bytes
         # moved and float ops for the bound, tolerance against the plain
@@ -693,6 +1049,42 @@ def main() -> int:
              replaces="src/repro/kernels/segment_activations.py:200",
              launches=fed_launches["segment_activations_bwd"],
              shape=f"({Bt}, {St} spans x Wmax {Wt}), ct in [-1, 1]"),
+        dict(name="vgm_encode", stem="vgm_encode",
+             kern=lambda: vgm_encode_cuda(*col_args),
+             plain=lambda: plain.vgm_encode_ref(*col_args),
+             compare=cmp_exact,
+             bytes=4 * (2 * Nq + 3 * K0 + 2 * Nq * K0), ops=Nq * (9 * K0 + 4),
+             replaces="src/repro/kernels/vgm_encode.py:89",
+             launches=record["encode_loop"]["launches"]["vgm_encode"],
+             shape=f"x ({Nq},), K {K0}"),
+        dict(name="flash_attention_fwd", stem="flash_attention",
+             kern=lambda: flash_fwd_cuda(fq, fk, fv, **mask),
+             plain=lambda: plain.flash_attention_fwd_ref(fq, fk, fv, **mask),
+             library=lambda: F.scaled_dot_product_attention(fq, fk, fv,
+                                                            is_causal=True),
+             compare=cmp_fwd, bytes=2 * 4 * elems + 4 * BH * Sf,
+             ops=2 * 2 * hd * pairs, peak=PEAK_BF16_OPS_PER_S,
+             replaces="src/repro/kernels/flash_attention.py:167",
+             launches=lm_launches["flash_attention_fwd"],
+             shape=f"({LM_BATCH}, 9, {Sf}, {hd}) bf16, causal"),
+        dict(name="flash_attention_dq", stem="flash_attention",
+             kern=lambda: flash_dq_cuda(*bwd_args, **mask),
+             plain=lambda: plain.flash_attention_dq_ref(*bwd_args, **mask),
+             library=lib_bwd, compare=cmp_grads,
+             bytes=2 * 4 * elems + 8 * BH * Sf + 4 * elems,
+             ops=3 * 2 * hd * pairs, peak=PEAK_BF16_OPS_PER_S,
+             replaces="src/repro/kernels/flash_attention.py:199",
+             launches=lm_launches["flash_attention_dq"],
+             shape=f"({LM_BATCH}, 9, {Sf}, {hd}) bf16, causal"),
+        dict(name="flash_attention_dkv", stem="flash_attention",
+             kern=lambda: flash_dkv_cuda(*bwd_args, **mask),
+             plain=lambda: plain.flash_attention_dkv_ref(*bwd_args, **mask),
+             library=lib_bwd, compare=cmp_grads,
+             bytes=2 * 4 * elems + 8 * BH * Sf + 8 * elems,
+             ops=4 * 2 * hd * pairs, peak=PEAK_BF16_OPS_PER_S,
+             replaces="src/repro/kernels/flash_attention.py:216",
+             launches=lm_launches["flash_attention_dkv"],
+             shape=f"({LM_BATCH}, 9, {Sf}, {hd}) bf16, causal"),
     ]
     edges_case = dict(
         name="weighted_agg (edges)", stem="weighted_agg",
@@ -704,37 +1096,52 @@ def main() -> int:
         tol=1e-7 + 1e-6 * float(stack4.abs().max()),
         replaces="src/repro/kernels/ops.py:235", launches=None,
         shape=f"edges (2, 2, {D})")
+    # the LM merge: one launch over the flattened float32 stack of 4
+    # smollm-135m clients (random values; the shape is the point)
+    Dl = record["lm"]["params"]
+    lm_stack = torch.randn((LM_CLIENTS, Dl), device=dev,
+                           generator=torch.Generator(dev).manual_seed(17))
+    lm_w = torch.as_tensor(record["lm"]["weights"], device=dev)
+    lm_merge_case = dict(
+        name="weighted_agg (LM merge)", stem="weighted_agg",
+        kern=lambda: weighted_agg_cuda(lm_stack[None], lm_w[None])[0],
+        plain=lambda: plain.weighted_agg_ref(lm_stack, lm_w),
+        library=lambda: (lm_w / torch.sum(lm_w)) @ lm_stack,
+        bytes=4 * (LM_CLIENTS * Dl + LM_CLIENTS + Dl), ops=2 * LM_CLIENTS * Dl,
+        tol=1e-7 + 1e-6 * float(lm_stack.abs().max()),
+        replaces="src/repro/kernels/weighted_agg.py:47", launches=None,
+        shape=f"flat ({LM_CLIENTS}, {Dl})")
     kernels, timing, shapes = [], {}, {}
-    for case in cases + [edges_case]:
+    for case in cases + [edges_case, lm_merge_case]:
         name, kern, ref_fn = case["name"], case["kern"], case["plain"]
         out_k, out_p = kern(), ref_fn()
         torch.cuda.synchronize()
-        err = float((out_k - out_p).abs().max())
-        tol = case["tol"]
-        check(err <= tol, f"{name}: max abs error {err:.3g} > {tol:.3g}")
+        if "compare" in case:
+            err, ok, tol_txt = case["compare"](out_k, out_p)
+        else:
+            err = float((out_k - out_p).abs().max())
+            ok, tol_txt = err <= case["tol"], f"{case['tol']:.3g}"
+        check(ok, f"{name}: max abs error {err:.3g}, tolerance {tol_txt}")
         if name == "segment_activations":
             soft = ~layout.pack_pad & (np.repeat(layout.kinds[:, 0],
                                                  layout.wmax) < 0.5)
             soft = torch.as_tensor(soft, device=dev)
             check(torch.equal(out_k[:, soft].round(), out_p[:, soft].round()),
                   f"{name}: hard one-hots differ")
-        ms, seen = device_ms(kern)
-        plain_ms, _ = device_ms(ref_fn)
-        source = "profiler device time"
-        if ms <= 0.0 or plain_ms <= 0.0:   # the profiler saw no kernels
-            ms, plain_ms = cuda_ms(kern), cuda_ms(ref_fn)
-            source = "CUDA events (profiler saw no device time)"
+        ms, plain_ms = kernel_ms(kern), kernel_ms(ref_fn)
+        source = "device time: CUDA events behind a spin kernel"
         call_ms, plain_call_ms = cuda_ms(kern), cuda_ms(ref_fn)
         lib = case.get("library")
-        lib_ms = device_ms(lib)[0] if lib is not None else None
+        lib_ms = kernel_ms(lib) if lib is not None else None
         extra = {}
         if case["stem"] == "weighted_agg":
             lib_err = float((lib() - out_p).abs().max())
             extra = {"cold_ms": cold_ms(kern), "library_cold_ms": cold_ms(lib),
                      "library_max_abs_err": lib_err}
-        b_ms, b_by = bound_ms(case["bytes"], case["ops"])
+        b_ms, b_by = bound_ms(case["bytes"], case["ops"],
+                              case.get("peak", PEAK_F32_OPS_PER_S))
         shapes[name] = case["shape"]
-        timing[name] = {"source": source, "kernels_seen": seen,
+        timing[name] = {"source": source,
                         "call_ms": call_ms, "plain_call_ms": plain_call_ms,
                         "library_ms": lib_ms, "bound_ms": b_ms,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -747,18 +1154,21 @@ def main() -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
         lib_txt = ("no single PyTorch call computes it" if lib is None else
-                   f"library call {lib_ms * 1e3:.2f} us")
+                   f"library call {lib_ms * 1e3:.2f} us"
+                   + (" (the dq + dk/dv pair)" if lib is lib_bwd else ""))
         cold_txt = ("" if not extra else
                     f"; cold L2: kernel {extra['cold_ms'] * 1e3:.2f} us, "
-                    f"library {extra['library_cold_ms'] * 1e3:.2f} us "
-                    f"(profiler device time)")
+                    f"library {extra['library_cold_ms'] * 1e3:.2f} us")
         print(f"kernel {name} [{case['shape']}]: {ms * 1e3:.2f} us, plain "
               f"{plain_ms * 1e3:.2f} us ({source}); per call with launch "
               f"{call_ms * 1e3:.2f} us, plain {plain_call_ms * 1e3:.2f} us "
               f"(CUDA events); bound {b_ms * 1e3:.2f} us ({b_by}); max abs "
-              f"err {err:.3g} (tol {tol:.3g}); launches {case['launches']}; "
-              f"{lib_txt}{cold_txt}; kernels seen {seen}")
+              f"err {err:.3g} (tol {tol_txt}); launches {case['launches']}; "
+              f"{lib_txt}{cold_txt}")
     record.update(kernels=kernels, shapes=shapes, timing=timing)
+    lap("kernels against plain")
+    record["phase_s"] = phase_s
+    print(f"phase seconds {phase_s}")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -11,7 +11,15 @@ port's module; ``gan_state_from_reference`` takes a whole flattened
 ``".step"``) and returns the port's :class:`GANState` with both Adam
 states.  ``encoders_from_reference`` takes per-column VGM arrays and
 label-encoder categories and returns the port's :class:`TableEncoders`.
-With these, the two packages compute from the same state.
+``lm_params_from_reference`` takes a flattened ``Transformer`` parameter
+tree (``embed``, ``final_norm``, ``layers/pos0/pre_norm``,
+``layers/pos0/attn/wq``, ..., ``layers/pos0/ffn/w_down``, every leaf under
+``layers`` with a leading ``n_rep`` axis) and returns the port's parameter
+dict; ``lm_train_state_from_reference`` takes a flattened ``TrainState``
+(``.params/...``, ``.opt_state/.mu/...``, ``.opt_state/.nu/...``,
+``.opt_state/.count``, ``.step``) and returns the port's
+:class:`repro_torch.models.TrainState`.  With these, the two packages
+compute from the same state.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import torch
 from .device import resolve_device
 from .gan.ctgan import CTGANConfig, Discriminator, Generator
 from .gan.trainer import GANState
+from .models import ModelConfig, TrainState, tree_items, tree_leaves
 from .optim import AdamState
 from .tabular.encoders import ColumnSpec, LabelEncoder, TableEncoders
 from .tabular.vgm import VGMParams
@@ -149,3 +158,71 @@ def encoders_from_reference(schema: Sequence,
               for j, v in vgms.items()}
     les = {j: LabelEncoder(np.asarray(c)) for j, c in categories.items()}
     return TableEncoders(port_schema, les, params, dev)
+
+
+def _lm_leaf(flat: Mapping[str, np.ndarray], key: str, index: int | None,
+             dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    a = np.asarray(flat[key], np.float32)
+    if index is not None:
+        a = a[index]
+    return torch.from_numpy(np.array(a, order="C")).to(device, dtype)
+
+
+def _lm_tree(flat: Mapping[str, np.ndarray], prefix: str, cfg: ModelConfig,
+             device: torch.device) -> dict:
+    """The port's LM parameter dict (or one Adam moment tree) from the
+    reference's keys under ``prefix``.  Norm scales are float32, as the
+    reference initializes them; every other leaf takes the model's dtype
+    (checkpoints store bfloat16 as float32)."""
+    model_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    keys = [k[len(prefix):] for k in flat if k.startswith(prefix)]
+    tree: dict = {}
+    for key in keys:
+        dtype = (torch.float32 if key.split("/")[-1].endswith("norm")
+                 else model_dtype)
+        parts = key.split("/")
+        if parts[0] == "layers":
+            reps = tree.setdefault("layers", [{} for _ in range(cfg.n_rep)])
+            for r in range(cfg.n_rep):
+                node = reps[r]
+                for part in parts[1:-1]:
+                    node = node.setdefault(part, {})
+                node[parts[-1]] = _lm_leaf(flat, prefix + key, r, dtype,
+                                           device)
+        else:
+            node = tree
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = _lm_leaf(flat, prefix + key, None, dtype,
+                                       device)
+    return tree
+
+
+def lm_params_from_reference(flat: Mapping[str, np.ndarray],
+                             cfg: ModelConfig, *,
+                             device: torch.device | str = "cuda") -> dict:
+    """The port's ``Transformer`` parameters from a flattened reference
+    parameter tree, every leaf a tensor that requires grad."""
+    params = _lm_tree(flat, "", cfg, resolve_device(device))
+    for _, t in tree_items(params):
+        t.requires_grad_(True)
+    return params
+
+
+def lm_train_state_from_reference(flat: Mapping[str, np.ndarray],
+                                  cfg: ModelConfig, *,
+                                  device: torch.device | str = "cuda"
+                                  ) -> TrainState:
+    """The port's ``TrainState`` (parameters, Adam moments in each
+    parameter's dtype, as the reference's ``adam`` keeps them by default,
+    count, step) from a flattened reference ``TrainState``."""
+    dev = resolve_device(device)
+    params = lm_params_from_reference(
+        {k[len(".params/"):]: v for k, v in flat.items()
+         if k.startswith(".params/")}, cfg, device=dev)
+
+    def moments(name):     # keyed, and so ordered, as the parameters
+        return tree_leaves(_lm_tree(flat, f".opt_state/.{name}/", cfg, dev))
+    opt = AdamState(moments("mu"), moments("nu"),
+                    int(np.asarray(flat[".opt_state/.count"])))
+    return TrainState(params, opt, int(np.asarray(flat[".step"])))

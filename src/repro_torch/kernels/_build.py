@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("vgm_encode", "vgm_decode", "segment_activations",
-           "weighted_agg")
+           "weighted_agg", "flash_attention")
 # --fmad=false: no contraction into fused multiply-adds, so each kernel
 # rounds like its plain version; no --use_fast_math: IEEE expf/logf/tanhf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -111,20 +111,21 @@ def kernel_function(stem: str, name: str, argtypes: list):
     return fn
 
 
-def check_cuda_inputs(name: str, device: torch.device, **tensors) -> None:
+def check_cuda_inputs(name: str, device: torch.device, *,
+                      dtype: torch.dtype = torch.float32, **tensors) -> None:
     """Raise unless every ``tensors[k] = (tensor, shape)`` is a contiguous
-    float32 CUDA tensor of that shape on ``device`` that needs no grad.
-    Every wrapper launches one kernel and records no autograd graph; the
-    one backward, of ``segment_activations``, is reached through
-    :func:`repro_torch.kernels.ops.segment_activations`."""
+    CUDA tensor of ``dtype`` and that shape on ``device`` that needs no
+    grad.  Every wrapper launches one kernel and records no autograd graph;
+    the backwards of ``segment_activations`` and ``flash_attention`` are
+    reached through their ``autograd.Function``s."""
     if device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
                          f"{device}")
     for arg, (t, shape) in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, not {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
@@ -133,9 +134,10 @@ def check_cuda_inputs(name: str, device: torch.device, **tensors) -> None:
         if t.requires_grad:
             raise RuntimeError(
                 f"{name}: {arg} requires grad, but the kernel wrappers record "
-                "no autograd graph: vgm_encode_table, vgm_decode_table and "
-                "weighted_agg have no backward, and segment_activations "
-                "takes its backward through ops.segment_activations")
+                "no autograd graph: the encode, decode and merge kernels have "
+                "no backward, and segment_activations and flash_attention "
+                "take theirs through ops.segment_activations and "
+                "ops.flash_attention")
 
 
 def launch(name: str, stem: str, fn, device: torch.device, *args) -> None:

@@ -9,7 +9,11 @@ failed build or launch to the plain version.
 the same contracts: one ``vgm_decode_table`` dispatch per request, one
 ``segment_activations`` per generator forward, one
 ``segment_activations_bwd`` per generator backward on the card, one
-``weighted_agg`` per merge tier.
+``weighted_agg`` per merge tier.  The JAX package counts no flash
+attention call; the port counts ``flash_attention_fwd``,
+``flash_attention_dq`` and ``flash_attention_dkv`` launches (and
+``flash_attention_ref`` plain calls on the CPU) so that a run shows the
+kernels ran.
 """
 from __future__ import annotations
 
@@ -18,19 +22,21 @@ import contextlib
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 from . import ref
 from ._build import DISPATCH_COUNTS
+from .flash_attention import FlashAttention
 from .segment_activations import (SegmentActivations, build_span_layout,
                                   layout_tensors, segment_activations_cuda)
 from .vgm_decode import vgm_decode_table_cuda
-from .vgm_encode import vgm_encode_table_cuda
+from .vgm_encode import vgm_encode_cuda, vgm_encode_table_cuda
 from .weighted_agg import weighted_agg_cuda
 
 __all__ = ["DISPATCH_COUNTS", "dispatch_scope", "stage_dispatches",
-           "vgm_encode_table", "vgm_decode_table", "segment_activations",
-           "pack_segments", "weighted_average_flat",
-           "weighted_average_edges"]
+           "vgm_encode", "vgm_encode_table", "vgm_decode_table",
+           "segment_activations", "pack_segments", "weighted_average_flat",
+           "weighted_average_edges", "flash_attention"]
 
 
 @contextlib.contextmanager
@@ -63,6 +69,16 @@ def stage_dispatches(counts, stage: str) -> int:
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def vgm_encode(x, means, stds, log_weights, gumbel):
+    """Encode one continuous column: x (N,), its (K,) mode params and
+    (N, K) Gumbel noise -> (alpha (N,), beta (N, K)); see
+    :mod:`repro_torch.kernels.vgm_encode`."""
+    if _on_cpu(x):
+        DISPATCH_COUNTS["vgm_encode_ref"] += 1
+        return ref.vgm_encode_ref(x, means, stds, log_weights, gumbel)
+    return vgm_encode_cuda(x, means, stds, log_weights, gumbel)
 
 
 def vgm_encode_table(x_cols, means, stds, log_weights, gumbel):
@@ -149,3 +165,37 @@ def weighted_average_edges(stacked: torch.Tensor,
         DISPATCH_COUNTS["weighted_agg_ref"] += 1
         return ref.weighted_agg_edges_ref(stacked, weights)
     return weighted_agg_cuda(stacked, weights)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """q (B, H, Sq, hd); k, v (B, Kh, Sk, hd) with H % Kh == 0 -> (B, H,
+    Sq, hd) in q's dtype.  Differentiable: :class:`repro_torch.kernels.
+    flash_attention.FlashAttention`, the CUDA kernels on the card and
+    their plain versions on the CPU.
+
+    As the reference does outside its custom VJP: KV head h // (H // Kh)
+    serves query head h (``repeat_interleave``, outside the autograd
+    function, so dk/dv sum over the group through autograd), Sq and Sk are
+    padded to multiples of ``block_q`` and ``block_k`` (the padded keys
+    masked by the unpadded length), and the output is sliced back."""
+    B, H, Sq, hd = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
+    if H % Kh:
+        raise ValueError(f"flash_attention: {H} query heads are not a "
+                         f"multiple of {Kh} KV heads")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} must be >= 1")
+    if Kh != H:
+        k = torch.repeat_interleave(k, H // Kh, dim=1)
+        v = torch.repeat_interleave(v, H // Kh, dim=1)
+    pad_q, pad_k = (-Sq) % block_q, (-Sk) % block_k
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, pad_k))
+    out = FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal, window, Sk)
+    return out[:, :, :Sq, :]

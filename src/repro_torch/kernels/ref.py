@@ -41,6 +41,21 @@ def vgm_encode_table_ref(x_cols: torch.Tensor, means: torch.Tensor,
     return torch.cat([alpha[:, :, None], beta], dim=2).reshape(N, Q * (1 + K))
 
 
+def vgm_encode_ref(x: torch.Tensor, means: torch.Tensor, stds: torch.Tensor,
+                   log_weights: torch.Tensor, gumbel: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One column: x (N,); means/stds/log_weights (K,) (invalid modes carry
+    log_weights=-1e30); gumbel (N, K).  Returns alpha (N,) and the one-hot
+    beta (N, K), the Q = 1 case of :func:`vgm_encode_table_ref`."""
+    xf = x.float()
+    z = (xf[:, None] - means[None, :]) / stds[None, :]
+    log_pdf = -0.5 * z * z - torch.log(stds)[None, :] - _HALF_LOG2PI
+    comp = torch.argmax(log_pdf + log_weights[None, :] + gumbel, dim=1)
+    alpha = torch.clamp((xf - means[comp]) / (4.0 * stds[comp]), -1.0, 1.0)
+    beta = torch.nn.functional.one_hot(comp, means.shape[0]).float()
+    return alpha, beta
+
+
 def vgm_decode_table_ref(slots: torch.Tensor, means: torch.Tensor,
                          stds: torch.Tensor) -> torch.Tensor:
     """slots (N, Q*(1+K)) per-column ``[alpha, beta_0..beta_{K-1}]``
@@ -114,3 +129,86 @@ def weighted_agg_edges_ref(stacked: torch.Tensor,
     w = weights.float()
     w = w / torch.clamp(torch.sum(w, dim=1, keepdim=True), min=1e-12)
     return torch.sum(stacked.float() * w[:, :, None], dim=1)
+
+
+def _flash_mask(sq: int, sk: int, kv_len: int, causal: bool,
+                window: int | None, device) -> torch.Tensor:
+    """(Sq, Sk) bool: key j is visible to query i (and is not padding)."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    ok = k_pos < kv_len
+    if causal:
+        ok = ok & (k_pos <= q_pos)
+    if window is not None:
+        ok = ok & (k_pos > q_pos - window)
+    return ok
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            *, causal: bool, window: int | None,
+                            kv_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward over padded, head-matched inputs q (B, H, Sq, hd),
+    k/v (B, H, Sk, hd); keys at or past ``kv_len`` are padding.  Returns
+    out (B, H, Sq, hd) in q's dtype and lse (B, H, Sq) float32.
+
+    The Pallas body's arithmetic without its tiling: q is scaled by
+    1/sqrt(hd) before the product, masked scores are -1e30 (finite, so a
+    fully masked row stays finite), and ``out = acc / max(l, 1e-30)``,
+    ``lse = m + log(max(l, 1e-30))``."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = (q.float() * scale) @ k.float().transpose(-1, -2)
+    ok = _flash_mask(q.shape[2], k.shape[2], kv_len, causal, window, q.device)
+    s = torch.where(ok, s, NEG_INF)
+    m = torch.amax(s, dim=-1)
+    p = torch.exp(s - m[..., None])
+    denom = torch.clamp(torch.sum(p, dim=-1), min=1e-30)
+    out = (p @ v.float()) / denom[..., None]
+    return out.to(q.dtype), m + torch.log(denom)
+
+
+def flash_attention_dq_ref(q, k, v, do, lse, delta, *, causal: bool,
+                           window: int | None, kv_len: int) -> torch.Tensor:
+    """dq (float32) of the flash forward for the upstream gradient ``do``
+    (in q's dtype), the forward's ``lse`` and ``delta = sum(do * out,
+    -1)``: ``p = exp(s - lse)`` with q scaled before the product, ``ds =
+    p * (do v^T - delta)``, ``dq = (ds k) / sqrt(hd)``."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = (q.float() * scale) @ k.float().transpose(-1, -2)
+    ok = _flash_mask(q.shape[2], k.shape[2], kv_len, causal, window, q.device)
+    p = torch.exp(torch.where(ok, s, NEG_INF) - lse[..., None])
+    dp = do.float() @ v.float().transpose(-1, -2)
+    ds = p * (dp - delta[..., None])
+    return (ds @ k.float()) * scale
+
+
+def flash_attention_dkv_ref(q, k, v, do, lse, delta, *, causal: bool,
+                            window: int | None, kv_len: int
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) (float32) of the flash forward, as the Pallas dk/dv body
+    computes them: the scores scaled AFTER the unscaled product, ``dv =
+    p^T do``, ``dk = (ds^T q) / sqrt(hd)``."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    ok = _flash_mask(q.shape[2], k.shape[2], kv_len, causal, window, q.device)
+    p = torch.exp(torch.where(ok, s, NEG_INF) - lse[..., None])
+    dof = do.float()
+    dv = p.transpose(-1, -2) @ dof
+    dp = dof @ v.float().transpose(-1, -2)
+    ds = p * (dp - delta[..., None])
+    dk = (ds.transpose(-1, -2) @ q.float()) * scale
+    return dk, dv
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True,
+                  window: int | None = None) -> torch.Tensor:
+    """q (B, H, Sq, hd); k, v (B, Kh, Sk, hd): full-matrix softmax
+    attention, KV head h // (H // Kh) for query head h."""
+    B, H, Sq, hd = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
+    k = torch.repeat_interleave(k, H // Kh, dim=1)
+    v = torch.repeat_interleave(v, H // Kh, dim=1)
+    s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+    s = torch.where(_flash_mask(Sq, Sk, Sk, causal, window, q.device), s,
+                    NEG_INF)
+    return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)

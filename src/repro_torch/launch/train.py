@@ -1,0 +1,207 @@
+"""Language-model training entry points, the port's copy of the JAX
+package's ``launch/train.py``.
+
+Two modes:
+
+* ``--federated``: Fed-TGAN rounds over P simulated clients: the §4.2
+  weights from token-frequency statistics, local Adam steps on every
+  client, and the weighted merge of the parameters in one ``weighted_agg``
+  launch per round;
+* default: plain training on one stream (the "centralized" reference in
+  federated terms).
+
+The entry points run on the card (``device="cuda"``) unless the caller
+asks for the CPU, where the flash-attention and merge kernels run as their
+plain PyTorch versions.  ``--smoke`` takes the reduced config of the CPU
+tests::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --smoke --steps 20 --batch 8 --seq 128 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --smoke --federated --clients 4 --rounds 5 --local-steps 2 \\
+      --non-iid --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..configs import ARCH_NAMES, get_config, get_smoke_config
+from ..data.tokens import (TokenDatasetSpec, client_token_streams,
+                           fed_weights_from_token_stats,
+                           synthetic_token_batches, token_frequency_stats)
+from ..device import resolve_device
+from ..fed.merge import fused_weighted_merge, replicate
+from ..models import (TrainState, Transformer, make_train_step, tree_leaves,
+                      tree_unflatten)
+from ..optim import adam, cosine_schedule
+
+
+def _batch_dict(tokens: np.ndarray, device: torch.device) -> dict:
+    """The step's batch: the tokens are their own labels (no shift), as in
+    the reference's LM rounds.  (Frame-embedding and vision inputs are not
+    ported: ``Transformer`` refuses those configs.)"""
+    tk = torch.as_tensor(np.ascontiguousarray(tokens), device=device)
+    return {"tokens": tk, "labels": tk}
+
+
+def run_centralized(cfg, *, steps, batch, seq, lr, seed=0, log_every=5,
+                    device: torch.device | str = "cuda", init_params=None):
+    """``steps`` Adam steps (b1 0.9, b2 0.95, global-norm clip 1.0, cosine
+    schedule with warm-up ``max(steps // 10, 1)``) on one synthetic
+    stream.  ``init_params`` (the port's parameter dict) replaces the
+    seeded initialization, so a test can start from the reference's.
+    Returns (state, history)."""
+    dev = resolve_device(device)
+    model = Transformer(cfg)
+    opt = adam(cosine_schedule(lr, warmup=max(steps // 10, 1), total=steps),
+               b1=0.9, b2=0.95, max_grad_norm=1.0)
+    params = (model.init(seed=seed, device=dev) if init_params is None
+              else init_params)
+    state = TrainState(params, opt.init(tree_leaves(params)), 0)
+    step_fn = make_train_step(model, opt)
+    data = synthetic_token_batches(TokenDatasetSpec(cfg.vocab, seq), batch,
+                                   steps, seed=seed)
+    hist = []
+    t0 = time.perf_counter()
+    for s in range(steps):
+        state, m = step_fn(state, _batch_dict(data[s], dev))
+        if (s + 1) % log_every == 0 or s == steps - 1:
+            loss = float(m["loss"])
+            hist.append({"step": s + 1, "loss": loss,
+                         "t": time.perf_counter() - t0})
+            print(f"step {s + 1:5d} loss {loss:.4f} "
+                  f"({(time.perf_counter() - t0) / (s + 1):.2f}s/step)")
+    return state, hist
+
+
+def federated_round(states: list, step_fn, tokens,
+                    weights: torch.Tensor) -> torch.Tensor:
+    """One global round in place: client i takes one step of ``step_fn``
+    on each of its ``tokens[i]`` (local_steps, B, S) batches, then every
+    client's parameters are replaced by the weighted merge (ONE
+    ``weighted_agg`` launch).  Returns the (P, local_steps) losses, on the
+    device."""
+    dev = weights.device
+    losses = torch.empty((len(states), len(tokens[0])), device=dev)
+    for i in range(len(states)):
+        for e, tk in enumerate(tokens[i]):
+            states[i], m = step_fn(states[i], _batch_dict(tk, dev))
+            losses[i, e] = m["loss"]
+    trees = [tree_leaves(st.params) for st in states]
+    replicate(fused_weighted_merge(trees, weights), trees)
+    return losses
+
+
+def lm_optimizer(lr):
+    """The LM rounds' Adam: b1 0.9, b2 0.95, global-norm clip 1.0."""
+    return adam(lr, b1=0.9, b2=0.95, max_grad_norm=1.0)
+
+
+def run_federated(cfg, *, clients, rounds, local_steps, batch, seq, lr,
+                  iid=True, seed=0, weighting="fedtgan", dp=None,
+                  device: torch.device | str = "cuda", init_params=None,
+                  on_round: Callable | None = None):
+    """Fed-TGAN rounds on a language model: every client takes
+    ``local_steps`` Adam steps (b1 0.9, b2 0.95, clip 1.0) on its own
+    stream, then the parameters (not the moments: each client keeps its
+    own Adam state) merge under the §4.2 weights in ONE ``weighted_agg``
+    launch over the flattened float32 stack of all clients, and the merged
+    values, rounded to each parameter's dtype, go to every client.
+
+    Clients run one after another on ``device``.  ``init_params`` replaces
+    the seeded initialization (a test hands in the reference's);
+    ``on_round(r, states, metrics)`` sees every round after its merge,
+    ``metrics["loss"]`` a (P, local_steps) tensor.  Returns (states,
+    history, weights)."""
+    if dp is not None:
+        raise NotImplementedError(
+            "dp: client-level DP for the merge needs gan/dp.py, which is "
+            "not ported yet (ROADMAP queue 1, DP and privacy)")
+    if weighting not in ("fedtgan", "uniform"):
+        raise ValueError(f"weighting {weighting!r}: 'fedtgan' or 'uniform'")
+    dev = resolve_device(device)
+    model = Transformer(cfg)
+    opt = lm_optimizer(lr)
+
+    spec = TokenDatasetSpec(cfg.vocab, seq)
+    streams = client_token_streams(spec, clients, batch,
+                                   rounds * local_steps, iid=iid, seed=seed)
+    # the paper's init protocol, token-adapted
+    stats = [token_frequency_stats(s, cfg.vocab) for s in streams]
+    n_tok = [int(s.size) for s in streams]
+    if weighting == "fedtgan":
+        w = fed_weights_from_token_stats(stats, n_tok)
+    else:
+        w = torch.full((clients,), 1.0 / clients)
+    print(f"client weights: {w.numpy().round(4)}")
+    w_dev = w.to(dev)
+
+    params = (model.init(seed=seed, device=dev) if init_params is None
+              else init_params)
+    states = []
+    for _ in range(clients):
+        own = [t.detach().clone().requires_grad_(True)
+               for t in tree_leaves(params)]
+        states.append(TrainState(tree_unflatten(params, own), opt.init(own),
+                                 0))
+    step_fn = make_train_step(model, opt)
+
+    hist = []
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        toks = [s[r * local_steps:(r + 1) * local_steps] for s in streams]
+        losses = federated_round(states, step_fn, toks, w_dev)
+        loss = float(torch.mean(losses))
+        hist.append({"round": r + 1, "loss": loss,
+                     "t": time.perf_counter() - t0})
+        print(f"round {r + 1:4d} mean-loss {loss:.4f}")
+        if on_round is not None:
+            on_round(r, states, {"loss": losses})
+    return states, hist, w.numpy()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="smollm-135m")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--federated", action="store_true")
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--local-steps", type=int, default=2)
+    ap.add_argument("--non-iid", action="store_true")
+    ap.add_argument("--uniform-weights", action="store_true")
+    ap.add_argument("--dp-noise", type=float, default=None,
+                    help="client-level DP noise multiplier for the "
+                         "federated merge (not ported yet: raises)")
+    ap.add_argument("--dp-clip", type=float, default=1.0,
+                    help="per-client update L2 clip for --dp-noise")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    dp = args.dp_noise
+    if args.federated:
+        run_federated(cfg, clients=args.clients, rounds=args.rounds,
+                      local_steps=args.local_steps, batch=args.batch,
+                      seq=args.seq, lr=args.lr, iid=not args.non_iid,
+                      weighting="uniform" if args.uniform_weights else "fedtgan",
+                      dp=dp, device=args.device)
+    else:
+        if dp is not None:
+            raise NotImplementedError("--dp-noise applies to --federated")
+        run_centralized(cfg, steps=args.steps, batch=args.batch,
+                        seq=args.seq, lr=args.lr, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,141 @@
+"""GQA self-attention for training, the port's copy of the JAX package's
+``models/attention.py``: RoPE, the chunked plain attention and the
+attention block with its ``use_flash_kernel`` route.
+
+Layouts are the reference's: activations ``(B, S, H, hd)`` inside the
+block, ``(B, H, S, hd)`` at the flash kernel.  The KV cache, prefill,
+decode and cross-attention are not ported yet (ROADMAP).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels import ops
+from ..kernels.ref import NEG_INF
+from .config import ModelConfig
+from .layers import dense_init
+
+
+def rope_frequencies(head_dim: int, theta: float, fraction: float = 1.0,
+                     device: torch.device | str | None = None):
+    """Inverse frequencies (rot/2,) in float32 and the rotated width."""
+    rot = int(head_dim * fraction) // 2 * 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / (theta ** exps), rot
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               fraction: float = 1.0) -> torch.Tensor:
+    """x (B, S, H, hd); positions (B, S) or (S,).  Rotates the pairs of
+    INTERLEAVED lanes ``(x[..., 0::2], x[..., 1::2])`` of the first
+    ``fraction * hd`` dims in float32, as the reference does (not Hugging
+    Face's ``rotate_half`` halves), and casts back."""
+    hd = x.shape[-1]
+    inv, rot = rope_frequencies(hd, theta, fraction, x.device)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * inv                  # (B, S, rot/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr = x[..., :rot].float()
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    rotated = torch.stack([out1, out2], dim=-1).reshape(x[..., :rot].shape)
+    return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: int | None) -> torch.Tensor:
+    """(Sq, Sk) additive float32 bias: 0 where a query may attend, -1e30
+    elsewhere."""
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                  window: int | None = None,
+                  q_chunk: int = 1024) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Sk, K, hd) with H % K == 0: query head h
+    reads KV head h // (H // K).  Full softmax in float32, in chunks of
+    ``q_chunk`` queries so the (Sq, Sk) scores never fully materialize."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    g = H // K
+    scale = 1.0 / math.sqrt(hd)
+    qh = q.reshape(B, Sq, K, g, hd)
+    kf, vf = k.float(), v.float()
+
+    def chunk_fn(qc, qp):
+        s = torch.einsum("bckgh,bskh->bckgs", qc.float(), kf) * scale
+        s = s + _mask_bias(qp, k_pos, causal, window)[None, :, None, None, :]
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bckgs,bskh->bckgh", p, vf)
+
+    out = torch.cat([chunk_fn(qh[:, i:i + q_chunk], q_pos[i:i + q_chunk])
+                     for i in range(0, Sq, q_chunk)], dim=1)
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig,
+                   dtype: torch.dtype) -> dict:
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {"wq": dense_init(generator, D, H * hd, dtype),
+         "wk": dense_init(generator, D, K * hd, dtype),
+         "wv": dense_init(generator, D, K * hd, dtype),
+         "wo": dense_init(generator, H * hd, D, dtype,
+                          scale=1.0 / math.sqrt(H * hd))}
+    if cfg.qkv_bias:
+        dev = generator.device
+        p["wq_bias"] = torch.zeros((H * hd,), dtype=dtype, device=dev)
+        p["wk_bias"] = torch.zeros((K * hd,), dtype=dtype, device=dev)
+        p["wv_bias"] = torch.zeros((K * hd,), dtype=dtype, device=dev)
+    return p
+
+
+def _project_qkv(p: dict, x: torch.Tensor, ctx: torch.Tensor,
+                 cfg: ModelConfig):
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p["wq"]
+    k = ctx @ p["wk"]
+    v = ctx @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["wq_bias"]
+        k = k + p["wk_bias"]
+        v = v + p["wv_bias"]
+    return (q.reshape(B, S, H, hd), k.reshape(B, ctx.shape[1], K, hd),
+            v.reshape(B, ctx.shape[1], K, hd))
+
+
+def attention_block(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
+                    positions: torch.Tensor,
+                    q_chunk: int = 1024) -> torch.Tensor:
+    """Full-sequence self-attention (training).  With
+    ``cfg.use_flash_kernel`` the attention itself is
+    :func:`repro_torch.kernels.ops.flash_attention` (the CUDA kernels on
+    the card, their plain versions on the CPU), else
+    :func:`gqa_attention`."""
+    q, k, v = _project_qkv(p, x, x, cfg)
+    if cfg.rope_style != "none":
+        frac = cfg.rope_fraction if cfg.rope_style == "partial" else 1.0
+        q = apply_rope(q, positions, cfg.rope_theta, frac)
+        k = apply_rope(k, positions, cfg.rope_theta, frac)
+    pos1d = positions if positions.dim() == 1 else positions[0]
+    if cfg.use_flash_kernel:
+        out = ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=cfg.causal, window=cfg.sliding_window).transpose(1, 2)
+    else:
+        out = gqa_attention(q, k, v, q_pos=pos1d, k_pos=pos1d,
+                            causal=cfg.causal, window=cfg.sliding_window,
+                            q_chunk=q_chunk)
+    return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]

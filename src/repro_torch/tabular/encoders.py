@@ -23,7 +23,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.ref import NEG_INF
-from .vgm import VGMParams, fit_vgm, pack_vgm_params
+from .vgm import VGMParams, fit_vgm, kernel_log_weights, pack_vgm_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +116,42 @@ class TableEncoders:
         """(N, encoded_dim) activations -> (N, Q) float64 raw table."""
         return self.decode_plan().decode(encoded)
 
+    def encode_loop(self, table: np.ndarray, *,
+                    gumbel: torch.Tensor | None = None,
+                    generator: torch.Generator | None = None
+                    ) -> torch.Tensor:
+        """The per-column path, kept as the oracle of :meth:`encode`: one
+        ``vgm_encode`` dispatch per continuous column, one one-hot per
+        categorical column, concatenated.  ``gumbel`` and ``generator``
+        are :meth:`EncodePlan.encode`'s (column q reads its lanes ``[q*Kmax,
+        q*Kmax + K_q)``), so the two paths agree exactly."""
+        plan = self.plan()
+        table = np.asarray(table)
+        n, dev = table.shape[0], self.device
+        if gumbel is None and plan.cont_cols:
+            gumbel = plan.draw_gumbel(n, generator)
+        parts, q = [], 0
+        for j, col in enumerate(self.schema):
+            if col.kind == "continuous":
+                p = self.vgms[j]
+                k = int(p.means.shape[0])
+                x = torch.as_tensor(np.ascontiguousarray(table[:, j]),
+                                    dtype=torch.float32, device=dev)
+                g = gumbel[:, q * plan.kmax:q * plan.kmax + k].to(
+                    dev, torch.float32).contiguous()
+                alpha, beta = ops.vgm_encode(x, p.means.float(),
+                                             p.stds.float(),
+                                             kernel_log_weights(p), g)
+                parts += [alpha[:, None], beta]
+                q += 1
+            else:
+                cats = self.label_encoders[j].categories
+                ranks = torch.as_tensor(np.searchsorted(cats, table[:, j]),
+                                        device=dev)
+                parts.append(torch.nn.functional.one_hot(
+                    ranks, len(cats)).float())
+        return torch.cat(parts, dim=1)
+
 
 def _cont_cat(schema):
     cont = tuple(j for j, c in enumerate(schema) if c.kind == "continuous")
@@ -149,6 +185,14 @@ class EncodePlan:
         return np.stack([np.searchsorted(self.cat_categories[q], table[:, j])
                          for q, j in enumerate(self.cat_cols)], axis=1)
 
+    def draw_gumbel(self, n: int,
+                    generator: torch.Generator | None) -> torch.Tensor:
+        """Packed ``(n, Q_cont*Kmax)`` standard Gumbel noise on ``device``."""
+        u = torch.rand((n, len(self.cont_cols) * self.kmax),
+                       generator=generator, device=self.device)
+        u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))
+
     def encode(self, table: np.ndarray, *, gumbel: torch.Tensor | None = None,
                generator: torch.Generator | None = None) -> torch.Tensor:
         """Encode a raw (n, Q) table.  ``gumbel`` is the packed
@@ -164,10 +208,7 @@ class EncodePlan:
                 np.ascontiguousarray(table[:, list(self.cont_cols)]),
                 dtype=torch.float32, device=dev)
             if gumbel is None:
-                u = torch.rand((n, len(self.cont_cols) * self.kmax),
-                               generator=generator, device=dev)
-                u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-                gumbel = -torch.log(-torch.log(u))
+                gumbel = self.draw_gumbel(n, generator)
             slots = ops.vgm_encode_table(
                 x, self.means, self.stds, self.logw,
                 gumbel.to(dev, torch.float32).contiguous())

@@ -15,7 +15,15 @@ atol 3e-5, since ``y * (ct - sum(ct * y)) / tau`` multiplies the soft
 sample's 2e-6 by up to |ct - dot| / tau = 10.  The merge kernel sums the
 same products in client order; the plain version's normalizing sum of the
 weights may round an ulp apart: rtol 1e-6, atol 1e-7, and an all-zero
-edge gives exact +0.0.
+edge gives exact +0.0.  The single-column encode equals its plain version
+exactly, as the table encode does.
+
+The flash-attention kernels sum their products as fused multiply-adds in
+tile order, the plain versions as PyTorch's matrix products do: for unit
+normal inputs, float32 outputs and lse within 2e-5 and gradients within
+1e-4 of the largest plain gradient.  A bfloat16 output is the float32
+result rounded once in each, so the two may sit one bfloat16 ulp apart
+where they straddle a rounding boundary: rtol 2^-7.
 """
 import numpy as np
 import pytest
@@ -24,10 +32,13 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_dkv_cuda, flash_dq_cuda, flash_fwd_cuda)
 from repro_torch.kernels.segment_activations import (  # noqa: E402
     segment_activations_bwd_cuda, segment_activations_cuda)
 from repro_torch.kernels.vgm_decode import vgm_decode_table_cuda  # noqa: E402
-from repro_torch.kernels.vgm_encode import vgm_encode_table_cuda  # noqa: E402
+from repro_torch.kernels.vgm_encode import (  # noqa: E402
+    vgm_encode_cuda, vgm_encode_table_cuda)
 from repro_torch.kernels.weighted_agg import weighted_agg_cuda  # noqa: E402
 from torch_kernel_inputs import (ACT_LAYOUTS, activation_inputs,  # noqa: E402
                                  as_tensors, decode_inputs, encode_inputs)
@@ -159,3 +170,97 @@ def test_weighted_agg_matches_plain(cuda, E, C, D):
         assert not out[-1].any() and not torch.signbit(out[-1]).any()
     flat = ops.weighted_average_flat(stacked[0], w[0])
     torch.testing.assert_close(flat, out[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("N,K,k", [(40_000, 10, 10), (4099, 10, 7), (1, 1, 1)])
+def test_vgm_encode_column_matches_plain(cuda, N, K, k):
+    x, means, stds, logw, g = _on(cuda, encode_inputs(8, N, 1, K, [k]))
+    args = (x[:, 0].contiguous(), means[0], stds[0], logw[0], g)
+    before = _build.DISPATCH_COUNTS["vgm_encode"]
+    alpha, beta = ops.vgm_encode(*args)
+    torch.cuda.synchronize()
+    assert _build.DISPATCH_COUNTS["vgm_encode"] == before + 1
+    pa, pb = tref.vgm_encode_ref(*args)
+    torch.testing.assert_close(alpha, pa, rtol=0, atol=0)
+    torch.testing.assert_close(beta, pb, rtol=0, atol=0)
+
+
+def _flash_inputs(device, B, H, S, hd, dtype, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    return [torch.randn((B, H, S, hd), device=device, generator=g).to(dtype)
+            for _ in range(4)]
+
+
+FLASH_CASES = [  # B, H, S, hd, causal, window, kv_len
+    (2, 3, 256, 64, True, None, 256),
+    (1, 2, 256, 32, False, None, 256),
+    (1, 2, 384, 128, True, None, 384),
+    (1, 2, 256, 64, True, 48, 256),
+    (2, 2, 256, 64, False, 100, 200),     # padded keys past kv_len
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    B, H, S, hd, causal, window, kv_len = case
+    q, k, v, do = _flash_inputs(cuda, B, H, S, hd, dtype, S + hd)
+    mask = {"causal": causal, "window": window, "kv_len": kv_len}
+    with ops.dispatch_scope() as d:
+        out, lse = flash_fwd_cuda(q, k, v, **mask)
+        delta = torch.sum(do.float() * out.float(), dim=-1)
+        dq = flash_dq_cuda(q, k, v, do, lse, delta, **mask)
+        dk, dv = flash_dkv_cuda(q, k, v, do, lse, delta, **mask)
+        torch.cuda.synchronize()
+    assert dict(d) == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
+                       "flash_attention_dkv": 1}
+    p_out, p_lse = tref.flash_attention_fwd_ref(q, k, v, **mask)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, p_out, rtol=0, atol=2e-5)
+    else:
+        torch.testing.assert_close(out.float(), p_out.float(), rtol=2 ** -7,
+                                   atol=1e-6)
+    torch.testing.assert_close(lse, p_lse, rtol=0, atol=2e-5)
+    p_dq = tref.flash_attention_dq_ref(q, k, v, do, lse, delta, **mask)
+    p_dk, p_dv = tref.flash_attention_dkv_ref(q, k, v, do, lse, delta, **mask)
+    for got, want in ((dq, p_dq), (dk, p_dk), (dv, p_dv)):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * max(1.0, float(want.abs().max())))
+
+
+def test_flash_attention_autograd_runs_the_kernels(cuda):
+    """ops.flash_attention on the card: GQA expansion and ragged padding
+    around the autograd function, one launch of each kernel, and the CPU
+    route's output and gradients."""
+    g = torch.Generator(cuda).manual_seed(11)
+    q = torch.randn((2, 4, 200, 64), device=cuda, generator=g)
+    k, v = (torch.randn((2, 2, 200, 64), device=cuda, generator=g)
+            for _ in range(2))
+    ct = torch.randn((2, 4, 200, 64), device=cuda, generator=g)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    with ops.dispatch_scope() as d:
+        out = ops.flash_attention(*leaves, causal=True)
+        torch.sum(out * ct).backward()
+        torch.cuda.synchronize()
+    assert dict(d) == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
+                       "flash_attention_dkv": 1}
+    cpu = [t.cpu().requires_grad_() for t in (q, k, v)]
+    out_c = ops.flash_attention(*cpu, causal=True)
+    torch.sum(out_c * ct.cpu()).backward()
+    torch.testing.assert_close(out.cpu(), out_c.detach(), rtol=0, atol=2e-5)
+    for a, b in zip(leaves, cpu):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=0,
+                                   atol=1e-4 * max(1.0, float(b.grad.abs().max())))
+
+
+def test_flash_wrappers_check_inputs(cuda):
+    q, k, v, _ = _flash_inputs(cuda, 1, 2, 64, 64, torch.float32, 1)
+    mask = {"causal": True, "window": None, "kv_len": 64}
+    with pytest.raises(ValueError, match="head dim"):
+        flash_fwd_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                       v[..., :48].contiguous(), **mask)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_fwd_cuda(q, k.bfloat16(), v, **mask)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        flash_fwd_cuda(q.requires_grad_(), k, v, **mask)
