@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, federated CTGAN training and federated
-LM pre-training paths once on one CUDA card.
+"""Drive the PyTorch port's serving, federated CTGAN training, federated
+LM pre-training and xLSTM LM serving paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,7 @@ From the root of the repository.  Imports only ``repro_torch`` (from
 which stops the run with a non-zero exit on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the five CUDA sources from ``src/repro_torch/csrc`` (one nvcc per
+2. build the six CUDA sources from ``src/repro_torch/csrc`` (one nvcc per
    source, in parallel) into ``build/repro_torch``;
 3. register two tenants at full width: ``adult`` and ``intrusion`` from
    ``make_dataset`` at the paper's 40,000 rows, encoders fitted on the card,
@@ -53,17 +53,29 @@ which stops the run with a non-zero exit on failure:
    one-dispatch ``encode`` with the same Gumbel noise;
 12. the full-width smollm-135m's logits through the flash kernels against
    the plain ``gqa_attention`` route, float32, TF32 off;
-13. each kernel at its main path's shapes against its plain PyTorch version
+13. xLSTM LM serving at full width and depth: xlstm-1.3b (48 layers of
+   alternating mLSTM and sLSTM blocks, d_model 2,048, 4 heads, mLSTM head
+   dim 1,024, vocab 50,304, bf16) through
+   ``repro_torch.launch.serve.prefill_and_decode``: a greedy 4 x 2,048-token
+   prefill and 32 decoded tokens, 24 ``mlstm_chunk`` launches (one per
+   mLSTM layer), finite logits, tokens in the vocabulary; prefill and
+   decode tokens/s, peak memory and the card's busy share of one more
+   prefill; then a float32 copy of the same model, TF32 off: a prefill of
+   the first 1,792 tokens and 256 ``decode_step``s against a prefill of all
+   2,048 (the last logits) and a full forward (every decoded position),
+   which holds the kernel's final (C, n, m) carry against the per-step
+   decode;
+14. each kernel at its main path's shapes against its plain PyTorch version
    on the card, with its time, the plain version's time, its bound and,
    where one PyTorch call computes the same function, that call's time;
    the flash kernels also on a ragged and a sliding-window case against
    autograd through the plain full-matrix attention.
 
 Phases 3-5 are the serving main path, phase 6 the CTGAN training main
-path, phase 10 the LM main path and phase 11 the path of the single-column
-encode: the kernel launch counters are set to 0 just before each and read
-just after, every kernel of the path must have launched, and no
-plain-version counter may move.  The last two lines of output are the
+path, phase 10 the LM main path, phase 11 the path of the single-column
+encode and phase 13 the xLSTM serving path: the kernel launch counters
+are set to 0 just before each and read just after, every kernel of the
+path must have launched, and no plain-version counter may move.  The last two lines of output are the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; a longer
 record goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -93,6 +105,7 @@ N_ROWS = 40_000
 FED_CLIENTS, FED_ROUNDS, FED_STEPS = 5, 4, 2
 F32_EPS = 2.0 ** -23
 LM_CLIENTS, LM_ROUNDS, LM_STEPS, LM_BATCH, LM_SEQ = 4, 2, 2, 4, 2048
+XL_BATCH, XL_PROMPT, XL_GEN, XL_SPLIT = 4, 2048, 32, 1792
 
 
 def fail(msg: str):
@@ -129,8 +142,12 @@ def kernel_ms(fn, reps: int = 20, repeats: int = 5, *, before=None) -> float:
     card until the host has queued all of them, so the span holds their
     device work and no host launch gaps; median over ``repeats`` windows.
     ``before`` runs ahead of every call, and its own time, measured alike,
-    is subtracted.  (Summing the profiler's kernel records over a window
-    read up to 45% low late in a long run: records were dropped.)"""
+    is subtracted.  The host can queue only so many launches ahead of the
+    card (about a thousand): ``reps`` calls of a function that launches
+    hundreds of kernels each never fit behind the spin, so the spin grows
+    at most 5 times before the measurement fails.  (Summing the
+    profiler's kernel records over a window read up to 45% low late in a
+    long run: records were dropped.)"""
     import torch
 
     def span(f):
@@ -138,6 +155,8 @@ def kernel_ms(fn, reps: int = 20, repeats: int = 5, *, before=None) -> float:
         torch.cuda.synchronize()
         cycles, times = 10_000_000, []
         while len(times) < repeats:
+            check(cycles <= 10_000_000 * 4 ** 5, f"kernel_ms: {reps} calls "
+                  "never fit in the launch queue behind the spin kernel")
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(cycles)
@@ -170,23 +189,27 @@ def device_busy(fn, repeats: int = 1, top: int = 8) -> tuple[float, list]:
     a round it is the card's busy time.  Tracing only the device keeps the
     profiler cheap for a call of tens of thousands of operations, and its
     records complete late in a long run, where a CPU and CUDA trace's
-    kernel records came back incomplete."""
+    kernel records came back incomplete.  The trace's device records are
+    summed as they come (an xLSTM prefill leaves ~1.2 M of them), not
+    through ``key_averages``, which builds a Python object per record."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    totals, kern = [], []
+    totals, by_name = [], {}
     for _ in range(repeats):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        totals.append(sum(e.self_device_time_total for e in kern) / 1e3)
-    kern.sort(key=lambda e: -e.self_device_time_total)
-    return statistics.median(totals), [
-        (e.key[:70], e.self_device_time_total / 1e3, e.count)
-        for e in kern[:top]]
+        by_name = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                ns, n = by_name.get(e.name(), (0, 0))
+                by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+        totals.append(sum(ns for ns, _ in by_name.values()) / 1e6)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return statistics.median(totals), [(name[:70], ns / 1e6, n)
+                                       for name, (ns, n) in ranked]
 
 
 def cold_ms(fn) -> float:
@@ -655,6 +678,161 @@ def flash_route_checks(dev) -> dict:
     return out
 
 
+def xlstm_phase(dev) -> dict:
+    """Phase 13, the xLSTM serving path: ``prefill_and_decode`` at
+    xlstm-1.3b's full width and depth (bf16, greedy), one more prefill for
+    the card's busy share, and the float32 prefill-vs-decode gate."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import prefill_and_decode
+    from repro_torch.models import Transformer, tree_leaves, tree_unflatten
+
+    cfg = get_config("xlstm-1.3b")
+    model = Transformer(cfg)
+    n_mlstm = cfg.pattern.count("mlstm") * cfg.n_rep
+    params = model.init(seed=11, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prompts = torch.randint(0, cfg.vocab, (XL_BATCH, XL_PROMPT), device=dev,
+                            generator=torch.Generator(dev).manual_seed(11))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.DISPATCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    gen, stats = prefill_and_decode(
+        cfg, batch=XL_BATCH, prompt_len=XL_PROMPT, gen_tokens=XL_GEN,
+        temperature=0, seed=11, device=dev, params=params, prompts=prompts)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(ops.DISPATCH_COUNTS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(counts == {"mlstm_chunk": n_mlstm},
+          f"xLSTM serving launches {counts}, expected {n_mlstm} mlstm_chunk "
+          "and no plain route")
+    check(stats["logits_finite"], "xLSTM serving: a logit is not finite")
+    check(gen.shape == (XL_BATCH, XL_GEN)
+          and bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+          f"xLSTM serving: tokens {gen.shape} outside the vocabulary")
+    prefill_tps = XL_BATCH * XL_PROMPT / stats["prefill_s"]
+    print(f"xLSTM serve: xlstm-1.3b, {n_params} parameters "
+          f"(param_count {int(cfg.param_count())} + norm scales), bf16, "
+          f"{XL_BATCH} x {XL_PROMPT}-token greedy prefill in "
+          f"{stats['prefill_s']:.3f} s = {prefill_tps:.0f} tokens/s; "
+          f"{XL_GEN} decode steps in {stats['decode_s']:.3f} s = "
+          f"{stats['tok_per_s']:.1f} tokens/s; launches {counts} (gated: "
+          f"{n_mlstm} per prefill); logits finite; peak memory "
+          f"{peak_gb:.2f} GB; {run_s:.2f} s in all; sample "
+          f"{gen[0][:8].tolist()}")
+
+    def one_prefill():
+        with torch.no_grad():
+            model.prefill(params, {"tokens": prompts}, XL_PROMPT + XL_GEN)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    one_prefill()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    tp = time.perf_counter()
+    busy_ms, top = device_busy(one_prefill)
+    trace_s = time.perf_counter() - tp
+    check(busy_ms > 0.0, "xLSTM: the profiler saw no device time")
+    busy = busy_ms / (wall * 1e3)
+    print(f"xLSTM one more prefill: {wall * 1e3:.1f} ms wall, device busy "
+          f"{busy_ms:.1f} ms (busy share {busy:.3f}, idle {1 - busy:.3f}; "
+          f"traced in {trace_s:.1f} s); top kernels by device time: "
+          + "; ".join(f"{n} {ms:.1f} ms x{c}" for n, ms, c in top))
+
+    # float32: prefill of XL_SPLIT tokens, then decode the rest one token
+    # at a time, against a prefill of all of them (the last logits) and a
+    # full forward (every decoded position).  Tolerance rtol = atol = 1e-2:
+    # the two paths differ in rounding only, but the chunkwise and the
+    # per-step mLSTM round differently -- the reference bounds that gap at
+    # 2e-3 per block (tests/test_ssm_blocks.py) and its own model-level
+    # prefill-vs-replay test at 5e-2 -- and 48 blocks sit on the path.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = Transformer(cfg32)
+    p32 = tree_unflatten(params, [t.detach().float()
+                                  for t in tree_leaves(params)])
+    del params
+    torch.cuda.empty_cache()
+    tol = dict(rtol=1e-2, atol=1e-2)
+
+    def worst(got, want):      # max |got - want| / (atol + rtol |want|)
+        return float(((got - want).abs()
+                      / (tol["atol"] + tol["rtol"] * want.abs())).max())
+    with torch.no_grad():
+        ops.DISPATCH_COUNTS.clear()
+        t1 = time.perf_counter()
+        fwd, _ = m32.forward(p32, {"tokens": prompts})
+        want_steps = fwd[:, XL_SPLIT - 1:].contiguous()   # positions >= 1791
+        del fwd
+        torch.cuda.empty_cache()
+        head, caches = m32.prefill(p32, {"tokens": prompts[:, :XL_SPLIT]},
+                                   XL_PROMPT)
+        ratios = [worst(head, want_steps[:, 0])]
+        errs = [float((head - want_steps[:, 0]).abs().max())]
+        # the gate's power: the first step from caches whose mLSTM carry
+        # (C, n) is dropped must miss the forward by more than the tolerance
+        dropped = [{k: type(c)(torch.zeros_like(c.C), torch.zeros_like(c.n),
+                               c.m) if k == "pos0" else c
+                    for k, c in rep.items()} for rep in caches]
+        no_carry, _ = m32.decode_step(
+            p32, dropped, {"token": prompts[:, XL_SPLIT:XL_SPLIT + 1]})
+        del dropped
+        no_carry_ratio = worst(no_carry, want_steps[:, 1])
+        no_carry_err = float((no_carry - want_steps[:, 1]).abs().max())
+        for t in range(XL_SPLIT, XL_PROMPT):
+            logits, caches = m32.decode_step(
+                p32, caches, {"token": prompts[:, t:t + 1]})
+            want = want_steps[:, t - XL_SPLIT + 1]
+            ratios.append(worst(logits, want))
+            errs.append(float((logits - want).abs().max()))
+        full, _ = m32.prefill(p32, {"tokens": prompts}, XL_PROMPT)
+        torch.cuda.synchronize()
+        f32_s = time.perf_counter() - t1
+    last_err = float((logits - full).abs().max())
+    last_ratio = worst(logits, full)
+    counts32 = dict(ops.DISPATCH_COUNTS)
+    profile = {i: round(errs[i], 7) for i in (0, 1, 2, 4, 8, 16, 32, 64, 128, 256)
+               if i < len(errs)}
+    print(f"xLSTM float32 gate (TF32 off): prefill {XL_SPLIT} then "
+          f"{XL_PROMPT - XL_SPLIT} decode_steps vs prefill {XL_PROMPT}: last "
+          f"logits max abs err {last_err:.3g} ({last_ratio:.3g} of the "
+          f"tolerance; max |logit| {float(full.abs().max()):.3g}); every "
+          f"decoded position vs the full forward: max abs err "
+          f"{max(errs):.3g} at step {int(np.argmax(errs))} ({max(ratios):.3g} "
+          f"of the tolerance), by step {profile}; the first step with the "
+          f"mLSTM carry dropped misses by {no_carry_err:.3g} "
+          f"({no_carry_ratio:.1f}x the tolerance); rtol = atol = 1e-2; "
+          f"{f32_s:.1f} s")
+    check(counts32 == {"mlstm_chunk": 3 * n_mlstm},
+          f"float32 gate launches {counts32}")
+    check(bool(torch.isfinite(full).all() and torch.isfinite(logits).all()),
+          "float32 gate: logits not finite")
+    check(last_ratio <= 1.0, f"float32 prefill {XL_SPLIT} + "
+          f"{XL_PROMPT - XL_SPLIT} decode steps vs prefill {XL_PROMPT}: last "
+          f"logits {last_ratio:.3g} of the tolerance")
+    check(max(ratios) <= 1.0, f"float32 decode vs forward: worst position "
+          f"{int(np.argmax(ratios))} at {max(ratios):.3g} of the tolerance")
+    check(no_carry_ratio > 1.0, "float32 gate: dropping the mLSTM carry "
+          "does not move the first decoded logits past the tolerance")
+    del p32, caches, want_steps
+    torch.cuda.empty_cache()
+    return {"params": n_params, "prefill_s": stats["prefill_s"],
+            "prefill_tokens_per_s": prefill_tps,
+            "decode_s": stats["decode_s"],
+            "decode_tokens_per_s": stats["tok_per_s"], "run_s": run_s,
+            "launches": counts, "peak_memory_gb": peak_gb,
+            "extra_prefill_wall_ms": wall * 1e3,
+            "extra_prefill_busy_ms": busy_ms,
+            "extra_prefill_busy_share": busy, "trace_s": trace_s,
+            "top_kernels": top, "f32_last_err": last_err,
+            "f32_step_errs": errs, "f32_no_carry_err": no_carry_err,
+            "f32_s": f32_s}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -889,7 +1067,11 @@ def main() -> int:
     record["lm_logits"] = logits_phase(dev)
     lap("LM logits")
 
-    # ---- 13. each kernel at the main path's shapes --------------------
+    # ---- 13. xLSTM serving, the path of the mLSTM kernel ---------------
+    record["xlstm"] = xlstm_phase(dev)
+    lap("xLSTM serving")
+
+    # ---- 14. each kernel at the main path's shapes --------------------
     record["flash_route"] = flash_route_checks(dev)
     ds, enc, gen, _ = tenants["intrusion"]
     plan, dplan = enc.plan(), enc.decode_plan()
@@ -1111,6 +1293,42 @@ def main() -> int:
         tol=1e-7 + 1e-6 * float(lm_stack.abs().max()),
         replaces="src/repro/kernels/weighted_agg.py:47", launches=None,
         shape=f"flat ({LM_CLIENTS}, {Dl})")
+    # the chunkwise mLSTM at the xLSTM prefill's shape: 4 prompts x 4 heads,
+    # 2,048 steps, head dim 1,024, chunks of 256; inputs drawn as the
+    # reference's kernel tests draw them
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk_cuda
+    XB, XS, XD, XL = XL_BATCH * 4, XL_PROMPT, 1024, 256
+    gm = torch.Generator(dev).manual_seed(19)
+    mq = torch.randn((XB, XS, XD), device=dev, generator=gm) / XD ** 0.5
+    mk, mv = (torch.randn((XB, XS, XD), device=dev, generator=gm)
+              for _ in range(2))
+    mlf = F.logsigmoid(2.0 + torch.randn((XB, XS), device=dev, generator=gm))
+    mli = 0.5 * torch.randn((XB, XS), device=dev, generator=gm)
+    m_args = (mq, mk, mv, mlf, mli)
+
+    def cmp_mlstm(got, want):
+        (h, (C, n, m)), (ph, (pC, pn, pm)) = got, want
+        errs = [float((a - b).abs().max()) for a, b in
+                ((h, ph), (C, pC), (n, pn), (m, pm))]
+        ok = all(torch.allclose(a, b, rtol=1e-4, atol=2e-4)
+                 for a, b in ((h, ph), (C, pC), (n, pn)))
+        return (max(errs), ok and errs[3] <= 1e-5,
+                "h, C, n rtol 1e-4 atol 2e-4; m atol 1e-5 (max abs errs "
+                + ", ".join(f"{e:.3g}" for e in errs) + ")")
+    nch = XS // XL
+    mlstm_ops = XB * (2 * XL * XD * XD * (2 * nch - 1)       # C update, q C
+                      + 2 * 2 * XD * nch * XL * (XL + 1) // 2)  # causal q k, S v
+    cases.append(dict(
+        name="mlstm_chunk", stem="mlstm_chunk",
+        kern=lambda: mlstm_chunk_cuda(*m_args, chunk=XL, return_state=True),
+        plain=lambda: plain.mlstm_chunk_plain(*m_args, chunk=XL,
+                                              return_state=True),
+        compare=cmp_mlstm, plain_reps=2,     # ~280 launches per plain call
+        bytes=4 * (4 * XB * XS * XD + 2 * XB * XS + XB * XD * XD + XB * XD
+                   + XB),
+        ops=mlstm_ops, replaces="src/repro/kernels/mlstm_chunk.py:79",
+        launches=record["xlstm"]["launches"]["mlstm_chunk"],
+        shape=f"({XB}, {XS}, {XD}), L {XL}, float32, with the final state"))
     kernels, timing, shapes = [], {}, {}
     for case in cases + [edges_case, lm_merge_case]:
         name, kern, ref_fn = case["name"], case["kern"], case["plain"]
@@ -1128,7 +1346,8 @@ def main() -> int:
             soft = torch.as_tensor(soft, device=dev)
             check(torch.equal(out_k[:, soft].round(), out_p[:, soft].round()),
                   f"{name}: hard one-hots differ")
-        ms, plain_ms = kernel_ms(kern), kernel_ms(ref_fn)
+        ms = kernel_ms(kern)
+        plain_ms = kernel_ms(ref_fn, reps=case.get("plain_reps", 20))
         source = "device time: CUDA events behind a spin kernel"
         call_ms, plain_call_ms = cuda_ms(kern), cuda_ms(ref_fn)
         lib = case.get("library")

@@ -38,3 +38,9 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _MODULES[name].smoke_config()
+
+
+def supported_shapes(name: str) -> list[str]:
+    """Which of the 4 assigned input shapes run for this arch (an
+    encoder-only arch has no decode shapes)."""
+    return _MODULES[name].SUPPORTED_SHAPES

@@ -18,8 +18,13 @@ tree (``embed``, ``final_norm``, ``layers/pos0/pre_norm``,
 dict; ``lm_train_state_from_reference`` takes a flattened ``TrainState``
 (``.params/...``, ``.opt_state/.mu/...``, ``.opt_state/.nu/...``,
 ``.opt_state/.count``, ``.step``) and returns the port's
-:class:`repro_torch.models.TrainState`.  With these, the two packages
-compute from the same state.
+:class:`repro_torch.models.TrainState`; both take xLSTM trees too
+(``layers/pos0/mlstm/...``, ``layers/pos1/slstm/slstm_r``).
+``lm_caches_from_reference`` takes the flattened decode caches of the
+reference's ``Transformer.prefill`` or ``init_caches`` (``pos0/.C``,
+``pos1/.h``, ``pos0/.k``, ``pos0/.length``, ..., each with a leading
+``n_rep`` axis) and returns the port's cache list.  With these, the two
+packages compute from the same state.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ from .device import resolve_device
 from .gan.ctgan import CTGANConfig, Discriminator, Generator
 from .gan.trainer import GANState
 from .models import ModelConfig, TrainState, tree_items, tree_leaves
+from .models.attention import KVCache
+from .models.ssm import MLSTMState, SLSTMState
 from .optim import AdamState
 from .tabular.encoders import ColumnSpec, LabelEncoder, TableEncoders
 from .tabular.vgm import VGMParams
@@ -168,17 +175,23 @@ def _lm_leaf(flat: Mapping[str, np.ndarray], key: str, index: int | None,
     return torch.from_numpy(np.array(a, order="C")).to(device, dtype)
 
 
+# leaves the reference initializes in float32 whatever the model's dtype
+_F32_LEAVES = ("gate_i", "gate_f", "gate_o", "slstm_r")
+
+
 def _lm_tree(flat: Mapping[str, np.ndarray], prefix: str, cfg: ModelConfig,
              device: torch.device) -> dict:
     """The port's LM parameter dict (or one Adam moment tree) from the
-    reference's keys under ``prefix``.  Norm scales are float32, as the
-    reference initializes them; every other leaf takes the model's dtype
-    (checkpoints store bfloat16 as float32)."""
+    reference's keys under ``prefix``.  Norm scales, the mLSTM gates and
+    the sLSTM recurrent matrix are float32, as the reference initializes
+    them; every other leaf takes the model's dtype (checkpoints store
+    bfloat16 as float32)."""
     model_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     keys = [k[len(prefix):] for k in flat if k.startswith(prefix)]
     tree: dict = {}
     for key in keys:
-        dtype = (torch.float32 if key.split("/")[-1].endswith("norm")
+        leaf = key.split("/")[-1]
+        dtype = (torch.float32 if leaf.endswith("norm") or leaf in _F32_LEAVES
                  else model_dtype)
         parts = key.split("/")
         if parts[0] == "layers":
@@ -226,3 +239,31 @@ def lm_train_state_from_reference(flat: Mapping[str, np.ndarray],
     opt = AdamState(moments("mu"), moments("nu"),
                     int(np.asarray(flat[".opt_state/.count"])))
     return TrainState(params, opt, int(np.asarray(flat[".step"])))
+
+
+def lm_caches_from_reference(flat: Mapping[str, np.ndarray],
+                             cfg: ModelConfig, *,
+                             device: torch.device | str = "cuda") -> list:
+    """The port's decode caches (one ``{"pos<i>": ...}`` per repetition)
+    from the reference's flattened cache tree: ``KVCache`` (k, v in the
+    model's dtype, int32 length), ``MLSTMState`` and ``SLSTMState``
+    (float32), every leaf with a leading ``n_rep`` axis."""
+    dev = resolve_device(device)
+    model_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    kinds = {"attn": (KVCache, {"k": model_dtype, "v": model_dtype,
+                                "length": torch.int32}),
+             "mlstm": (MLSTMState, {}), "slstm": (SLSTMState, {})}
+    caches = []
+    for r in range(cfg.n_rep):
+        rep = {}
+        for pos, kind in enumerate(cfg.pattern):
+            if kind not in kinds:
+                raise NotImplementedError(
+                    f"{cfg.name}: no port cache for {kind!r} blocks (ROADMAP)")
+            state, dtypes = kinds[kind]
+            rep[f"pos{pos}"] = state(*(
+                torch.from_numpy(np.array(flat[f"pos{pos}/.{f}"][r], order="C")
+                                 ).to(dev, dtypes.get(f, torch.float32))
+                for f in state._fields))
+        caches.append(rep)
+    return caches

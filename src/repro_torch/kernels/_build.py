@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("vgm_encode", "vgm_decode", "segment_activations",
-           "weighted_agg", "flash_attention")
+           "weighted_agg", "flash_attention", "mlstm_chunk")
 # --fmad=false: no contraction into fused multiply-adds, so each kernel
 # rounds like its plain version; no --use_fast_math: IEEE expf/logf/tanhf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -134,10 +134,10 @@ def check_cuda_inputs(name: str, device: torch.device, *,
         if t.requires_grad:
             raise RuntimeError(
                 f"{name}: {arg} requires grad, but the kernel wrappers record "
-                "no autograd graph: the encode, decode and merge kernels have "
-                "no backward, and segment_activations and flash_attention "
-                "take theirs through ops.segment_activations and "
-                "ops.flash_attention")
+                "no autograd graph: the encode, decode, merge and mlstm_chunk "
+                "kernels have no backward, and segment_activations and "
+                "flash_attention take theirs through ops.segment_activations "
+                "and ops.flash_attention")
 
 
 def launch(name: str, stem: str, fn, device: torch.device, *args) -> None:

@@ -13,7 +13,8 @@ the same contracts: one ``vgm_decode_table`` dispatch per request, one
 attention call; the port counts ``flash_attention_fwd``,
 ``flash_attention_dq`` and ``flash_attention_dkv`` launches (and
 ``flash_attention_ref`` plain calls on the CPU) so that a run shows the
-kernels ran.
+kernels ran; likewise ``mlstm_chunk`` (``mlstm_chunk_ref`` on the CPU),
+one per mLSTM layer of a prefill.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 from . import ref
 from ._build import DISPATCH_COUNTS
 from .flash_attention import FlashAttention
+from .mlstm_chunk import mlstm_chunk_cuda
 from .segment_activations import (SegmentActivations, build_span_layout,
                                   layout_tensors, segment_activations_cuda)
 from .vgm_decode import vgm_decode_table_cuda
@@ -36,7 +38,7 @@ from .weighted_agg import weighted_agg_cuda
 __all__ = ["DISPATCH_COUNTS", "dispatch_scope", "stage_dispatches",
            "vgm_encode", "vgm_encode_table", "vgm_decode_table",
            "segment_activations", "pack_segments", "weighted_average_flat",
-           "weighted_average_edges", "flash_attention"]
+           "weighted_average_edges", "flash_attention", "mlstm_chunk"]
 
 
 @contextlib.contextmanager
@@ -199,3 +201,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal, window, Sk)
     return out[:, :, :Sq, :]
+
+
+def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_f: torch.Tensor, log_i: torch.Tensor, *, chunk: int,
+                return_state: bool = False):
+    """Chunkwise mLSTM hidden states (BH, S, hd), float32, before the
+    output gate; q (pre-scaled), k, v (BH, S, hd), log_f, log_i (BH, S).
+    With ``return_state`` also ``(C, n, m)`` after the last step.
+
+    CPU tensors take :func:`repro_torch.kernels.ref.mlstm_chunk_plain`
+    (differentiable by autograd), counted as ``mlstm_chunk_ref``; CUDA
+    tensors launch the kernel (:mod:`repro_torch.kernels.mlstm_chunk`),
+    counted as ``mlstm_chunk``.  The kernel has no backward, as the
+    reference's Pallas kernel has none: on the card, inputs that require
+    grad under autograd raise ``NotImplementedError``."""
+    args = (q, k, v, log_f, log_i)
+    if _on_cpu(q):
+        DISPATCH_COUNTS["mlstm_chunk_ref"] += 1
+        return ref.mlstm_chunk_plain(*args, chunk=chunk,
+                                     return_state=return_state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        raise NotImplementedError(
+            "mlstm_chunk: the CUDA kernel has no backward; see ROADMAP queue "
+            "1, \"xLSTM training on the card\". Run the forward under "
+            "torch.no_grad()")
+    return mlstm_chunk_cuda(*args, chunk=chunk, return_state=return_state)

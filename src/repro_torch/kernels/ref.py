@@ -212,3 +212,89 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(_flash_mask(Sq, Sk, Sk, causal, window, q.device), s,
                     NEG_INF)
     return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
+
+
+def mlstm_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_f: torch.Tensor, log_i: torch.Tensor) -> torch.Tensor:
+    """The per-step stabilized mLSTM recurrence, the oracle of the chunkwise
+    forms (the reference's ``kernels/ref.py:mlstm_chunk_ref``).
+
+    q/k/v (BH, S, hd), q pre-scaled; log_f/log_i (BH, S).  Returns the
+    normalized hidden states (BH, S, hd) in q's dtype."""
+    BH, S, hd = q.shape
+    C = torch.zeros((BH, hd, hd), dtype=torch.float32, device=q.device)
+    n = torch.zeros((BH, hd), dtype=torch.float32, device=q.device)
+    m = torch.zeros((BH,), dtype=torch.float32, device=q.device)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    lf_all, li_all = log_f.float(), log_i.float()
+    hs = []
+    for t in range(S):
+        q_t, k_t, v_t = qf[:, t], kf[:, t], vf[:, t]
+        lf, li = lf_all[:, t], li_all[:, t]
+        m_new = torch.maximum(lf + m, li)
+        fg = torch.exp(lf + m - m_new)[:, None, None]
+        ig = torch.exp(li - m_new)[:, None, None]
+        C = fg * C + ig * (k_t[:, :, None] * v_t[:, None, :])
+        n = fg[:, :, 0] * n + ig[:, :, 0] * k_t
+        num = torch.einsum("bde,bd->be", C, q_t)
+        den = torch.maximum(torch.abs(torch.sum(n * q_t, -1)),
+                            torch.exp(-m_new))
+        m = m_new
+        hs.append(num / den[:, None])
+    return torch.stack(hs, dim=1).to(q.dtype)
+
+
+def mlstm_chunk_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      log_f: torch.Tensor, log_i: torch.Tensor, *,
+                      chunk: int, return_state: bool = False):
+    """The chunkwise mLSTM of the reference's ``models/ssm.py:mlstm_block``
+    (its inner ``chunk`` step) on (BH, S, hd) tensors: per chunk of
+    ``chunk`` steps the intra-chunk gated quadratic term plus the
+    inter-chunk state term, with the (C, n, m) state carried across chunks
+    from zeros.
+
+    q (pre-scaled), k, v (BH, S, hd); log_f, log_i (BH, S); S a multiple of
+    ``chunk``.  Returns h (BH, S, hd) float32, and with ``return_state``
+    ``(h, (C (BH, hd, hd), n (BH, hd), m (BH,)))``, the state after the last
+    step.  Masked (query, key) pairs get the finite -1e30 before the
+    exponential, as the Pallas kernel masks its stabilizer, so they add
+    exact zeros and no inf reaches autograd."""
+    BH, S, hd = q.shape
+    L = int(chunk)
+    if L < 1 or S % L:
+        raise ValueError(f"mlstm_chunk: S={S} is not a multiple of chunk={L}")
+    dev = q.device
+    qf, kf, vf = q.float(), k.float(), v.float()
+    lf_all, li_all = log_f.float(), log_i.float()
+    C = torch.zeros((BH, hd, hd), dtype=torch.float32, device=dev)
+    n = torch.zeros((BH, hd), dtype=torch.float32, device=dev)
+    m = torch.zeros((BH,), dtype=torch.float32, device=dev)
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))
+    hs = []
+    for c0 in range(0, S, L):
+        q_t, k_t, v_t = qf[:, c0:c0 + L], kf[:, c0:c0 + L], vf[:, c0:c0 + L]
+        lf, li = lf_all[:, c0:c0 + L], li_all[:, c0:c0 + L]
+        b = torch.cumsum(lf, dim=1)                              # (BH, L)
+        logw = b[:, :, None] - b[:, None, :] + li[:, None, :]    # (BH, Lq, Lk)
+        intra_max = torch.amax(torch.where(tri, logw, NEG_INF), dim=2)
+        m_pos = torch.maximum(b + m[:, None], intra_max)
+        inter_w = torch.exp(b + m[:, None] - m_pos)
+        num_inter = (q_t @ C) * inter_w[..., None]
+        den_inter = (q_t @ n[:, :, None])[..., 0] * inter_w
+        w = torch.exp(torch.where(tri, logw - m_pos[:, :, None], NEG_INF))
+        scores = (q_t @ k_t.transpose(1, 2)) * w
+        num = num_inter + scores @ v_t
+        den = torch.maximum(torch.abs(den_inter + torch.sum(scores, dim=2)),
+                            torch.exp(-m_pos))
+        hs.append(num / den[..., None])
+        b_last = b[:, -1]
+        m_new = torch.maximum(b_last + m, torch.amax(
+            b_last[:, None] - b + li, dim=1))
+        carry_w = torch.exp(b_last + m - m_new)
+        kv_w = torch.exp(b_last[:, None] - b + li - m_new[:, None])
+        kw = k_t * kv_w[..., None]
+        C = carry_w[:, None, None] * C + kw.transpose(1, 2) @ v_t
+        n = carry_w[:, None] * n + torch.sum(kw, dim=1)
+        m = m_new
+    h = torch.cat(hs, dim=1) if hs else torch.zeros_like(qf)
+    return (h, (C, n, m)) if return_state else h

@@ -1,17 +1,27 @@
-"""Serving entry point: streaming tabular synthesis on the card.
+"""Serving entry points on the card: LM prefill + decode, and streaming
+tabular synthesis.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve \
+LM mode (batched one-pass prefill, then token-by-token decode):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+      --batch 4 --prompt-len 2048 --gen 32 [--smoke] [--device cpu]
+
+the counterpart of the JAX package's ``prefill_and_decode``
+(``launch/serve.py``).  Prompts and weights are random from ``--seed``;
+xLSTM's mLSTM layers run their prefill through the ``mlstm_chunk`` kernel.
+
+Tabular mode:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --tabular \
       --requests 16 --sizes 100,256,777 [--conditional] [--device cpu]
 
-The counterpart of the JAX package's ``run_tabular_server``
-(``launch/serve.py``, tabular mode): a short Fed-TGAN run
+the counterpart of ``run_tabular_server``: a short Fed-TGAN run
 (``run_federated``, 3 quantity-skewed clients of ``adult``) trains the
 generator and fits the encoders, the table is registered with a ladder
 fitted to the expected sizes, warmed up, and a mixed-size trace drains
 through :class:`~repro_torch.serve.StreamingSynthesizer`.  ``make_tenant``
 builds a servable table with a freshly initialized generator instead,
-for serving runs that need no training.  The LLM mode of the reference
-is not ported.
+for serving runs that need no training.
 """
 from __future__ import annotations
 
@@ -21,10 +31,13 @@ import time
 import numpy as np
 import torch
 
-from ..configs import ctgan_paper
+from ..configs import (ARCH_NAMES, ctgan_paper, get_config, get_smoke_config,
+                       supported_shapes)
 from ..core.architectures import run_federated
 from ..device import resolve_device, seeded_generator
 from ..gan.ctgan import CTGANConfig, Generator, init_generator
+from ..models import ModelConfig, Transformer, make_serve_step
+from ..models.attention import KVCache
 from ..serve import StreamingSynthesizer, TableRegistry, ladder_from_sizes
 from ..tabular import (TableEncoders, fit_centralized_encoders, make_dataset,
                        partition_quantity_skew)
@@ -53,6 +66,82 @@ def make_tenant(name: str, *, n_rows: int | None = None,
                          device=dev)
     encoded = enc.encode(ds.data, generator=rng)
     return ds, enc, gen, encoded
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def prefill_and_decode(cfg: ModelConfig, *, batch: int, prompt_len: int,
+                       gen_tokens: int, seed: int = 0,
+                       temperature: float = 1.0, replay_prefill: bool = False,
+                       device: torch.device | str = "cuda",
+                       params: dict | None = None, prompts=None
+                       ) -> tuple[np.ndarray, dict]:
+    """One-pass prefill (``Transformer.prefill``), then token-by-token
+    decode, without autograd.  The first decode input is the prefill's
+    greedy token; each step then samples from ``softmax(logits /
+    temperature)`` with a ``torch.Generator`` seeded from ``seed``, or
+    takes the argmax at ``temperature=0``.  ``replay_prefill`` fills the
+    caches through the decode path instead.  ``params`` and ``prompts``
+    ((batch, prompt_len) token ids) replace the random weights and prompts
+    drawn from ``seed``.
+
+    Returns the generated tokens (batch, gen_tokens) and stats:
+    ``prefill_s``, ``decode_s``, ``tok_per_s`` (host clock, the card
+    synchronized) and ``logits_finite`` (every logit of the prefill and
+    of every step)."""
+    dev = resolve_device(device)
+    model = Transformer(cfg)
+    serve = make_serve_step(model)
+    max_len = prompt_len + gen_tokens
+    with torch.no_grad():
+        if params is None:
+            params = model.init(seed=seed, device=dev)
+        g = seeded_generator(dev, seed, 1)
+        if prompts is None:
+            prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                                    generator=g, device=dev)
+        if not isinstance(prompts, torch.Tensor):
+            prompts = torch.from_numpy(np.array(prompts, dtype=np.int64))
+        prompts = prompts.to(dev).long()
+
+        _sync(dev)
+        t0 = time.perf_counter()
+        if replay_prefill:
+            caches = [{k: KVCache(c.k, c.v, torch.zeros_like(c.length))
+                       if isinstance(c, KVCache) else c for k, c in rep.items()}
+                      for rep in model.init_caches(batch, max_len, device=dev)]
+            for t in range(prompt_len):
+                logits, caches = serve(params, caches,
+                                       {"token": prompts[:, t:t + 1]})
+        else:
+            logits, caches = model.prefill(params, {"tokens": prompts},
+                                           max_len)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+
+        finite = torch.isfinite(logits).all()
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(gen_tokens):
+            logits, caches = serve(params, caches, {"token": tok})
+            finite &= torch.isfinite(logits).all()
+            if temperature > 0:
+                probs = torch.softmax(logits.float() / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=g)
+            else:
+                tok = torch.argmax(logits, dim=-1)[:, None]
+            out.append(tok[:, 0])
+        gen = (torch.stack(out, dim=1) if out else
+               torch.zeros((batch, 0), dtype=torch.long, device=dev))
+        gen = gen.cpu().numpy()
+        t_decode = time.perf_counter() - t0
+    return gen, {"prefill_s": t_prefill, "decode_s": t_decode,
+                 "tok_per_s": batch * gen_tokens / max(t_decode, 1e-9),
+                 "logits_finite": bool(finite)}
 
 
 def run_tabular_server(*, requests: int = 16,
@@ -112,24 +201,51 @@ def run_tabular_server(*, requests: int = 16,
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--requests", type=int, default=16, help="trace length")
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="smollm-135m")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced smoke config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tabular", action="store_true",
+                    help="serve streaming tabular synthesis instead of an LM")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="[tabular] trace length")
     ap.add_argument("--sizes", default="100,256,777",
-                    help="comma list of request row counts, cycled")
+                    help="[tabular] comma list of request row counts, cycled")
     ap.add_argument("--rows", type=int, default=1500,
-                    help="rows of the registered table")
+                    help="[tabular] rows of the registered table")
     ap.add_argument("--rounds", type=int, default=4,
-                    help="federated warm-up rounds")
+                    help="[tabular] federated warm-up rounds")
     ap.add_argument("--conditional", action="store_true",
-                    help="draw condition vectors from the table's marginals")
+                    help="[tabular] draw condition vectors from the table's "
+                         "marginals")
     ap.add_argument("--scheduler", choices=("fifo", "continuous"),
-                    default="fifo")
+                    default="fifo", help="[tabular] queue drain")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-    run_tabular_server(requests=args.requests,
-                       sizes=tuple(int(s) for s in args.sizes.split(",")),
-                       rounds=args.rounds,
-                       n_rows=args.rows, conditional=args.conditional,
-                       scheduler=args.scheduler, device=args.device)
+
+    if args.tabular:
+        run_tabular_server(requests=args.requests,
+                           sizes=tuple(int(s) for s in args.sizes.split(",")),
+                           rounds=args.rounds, n_rows=args.rows,
+                           conditional=args.conditional,
+                           scheduler=args.scheduler, seed=args.seed,
+                           device=args.device)
+        return
+
+    if "decode_32k" not in supported_shapes(args.arch):
+        raise SystemExit(f"{args.arch} is encoder-only: no decode step")
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    gen, stats = prefill_and_decode(cfg, batch=args.batch,
+                                    prompt_len=args.prompt_len,
+                                    gen_tokens=args.gen, seed=args.seed,
+                                    device=args.device)
+    print(f"generated {gen.shape} tokens | prefill {stats['prefill_s']:.2f}s "
+          f"decode {stats['decode_s']:.2f}s ({stats['tok_per_s']:.1f} tok/s)"
+          f" | logits finite {stats['logits_finite']}")
+    print("sample:", gen[0][:16])
 
 
 if __name__ == "__main__":

@@ -1,14 +1,18 @@
-"""GQA self-attention for training, the port's copy of the JAX package's
-``models/attention.py``: RoPE, the chunked plain attention and the
-attention block with its ``use_flash_kernel`` route.
+"""GQA self-attention, the port's copy of the JAX package's
+``models/attention.py``: RoPE, the chunked plain attention, the attention
+block with its ``use_flash_kernel`` route, and the serving path: the KV
+cache (a ring buffer under a sliding window), the one-pass prefill that
+builds it and the one-token decode against it.
 
 Layouts are the reference's: activations ``(B, S, H, hd)`` inside the
-block, ``(B, H, S, hd)`` at the flash kernel.  The KV cache, prefill,
-decode and cross-attention are not ported yet (ROADMAP).
+block, ``(B, H, S, hd)`` at the flash kernel, caches ``(B, S_max, K,
+hd)``.  The prefill attends through :func:`gqa_attention`, as the
+reference's does.  Cross-attention is not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -116,6 +120,14 @@ def _project_qkv(p: dict, x: torch.Tensor, ctx: torch.Tensor,
             v.reshape(B, ctx.shape[1], K, hd))
 
 
+def _rope_qk(q, k, positions, cfg: ModelConfig):
+    if cfg.rope_style == "none":
+        return q, k
+    frac = cfg.rope_fraction if cfg.rope_style == "partial" else 1.0
+    return (apply_rope(q, positions, cfg.rope_theta, frac),
+            apply_rope(k, positions, cfg.rope_theta, frac))
+
+
 def attention_block(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
                     positions: torch.Tensor,
                     q_chunk: int = 1024) -> torch.Tensor:
@@ -125,10 +137,7 @@ def attention_block(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     the card, their plain versions on the CPU), else
     :func:`gqa_attention`."""
     q, k, v = _project_qkv(p, x, x, cfg)
-    if cfg.rope_style != "none":
-        frac = cfg.rope_fraction if cfg.rope_style == "partial" else 1.0
-        q = apply_rope(q, positions, cfg.rope_theta, frac)
-        k = apply_rope(k, positions, cfg.rope_theta, frac)
+    q, k = _rope_qk(q, k, positions, cfg)
     pos1d = positions if positions.dim() == 1 else positions[0]
     if cfg.use_flash_kernel:
         out = ops.flash_attention(
@@ -139,3 +148,89 @@ def attention_block(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
                             causal=cfg.causal, window=cfg.sliding_window,
                             q_chunk=q_chunk)
     return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, S_max, K, hd)
+    v: torch.Tensor
+    length: torch.Tensor     # (B,) int32, the current fill
+
+
+def attention_prefill(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
+                      positions: torch.Tensor, max_len: int,
+                      q_chunk: int = 1024) -> tuple[torch.Tensor, KVCache]:
+    """Full-sequence attention that also builds the decode cache in one
+    pass.  Under a sliding window the cache holds the last ``window`` keys
+    and values in ring order, as token-by-token decode would have left
+    them."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, x, cfg)
+    q, k = _rope_qk(q, k, positions, cfg)
+    pos1d = positions if positions.dim() == 1 else positions[0]
+    out = gqa_attention(q, k, v, q_pos=pos1d, k_pos=pos1d, causal=cfg.causal,
+                        window=cfg.sliding_window, q_chunk=q_chunk)
+    out = out.reshape(B, S, -1) @ p["wo"]
+
+    window = cfg.sliding_window
+    S_max = min(max_len, window) if window else max_len
+    if window and S >= S_max:
+        perm = torch.remainder(torch.arange(S_max, device=x.device) - S, S_max)
+        k_cache = k[:, -S_max:][:, perm]        # slot -> tail index
+        v_cache = v[:, -S_max:][:, perm]
+    else:
+        pad = S_max - min(S, S_max)
+        k_cache = torch.nn.functional.pad(k[:, :S_max], (0, 0, 0, 0, 0, pad))
+        v_cache = torch.nn.functional.pad(v[:, :S_max], (0, 0, 0, 0, 0, pad))
+    length = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return out, KVCache(k_cache, v_cache, length)
+
+
+def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, *,
+                     cfg: ModelConfig) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode: x (B, 1, D) against a (possibly windowed) cache.
+    The new key and value go to slot ``length % S_max`` (a ring buffer);
+    scores and softmax in float32 over the valid slots."""
+    B = x.shape[0]
+    pos = cache.length.long()                              # (B,)
+    q, k_new, v_new = _project_qkv(p, x, x, cfg)
+    q, k_new = _rope_qk(q, k_new, pos[:, None], cfg)
+
+    S_max = cache.k.shape[1]
+    slot = pos % S_max
+    idx = torch.arange(S_max, device=x.device)[None, :]
+    sel = (idx == slot[:, None])[:, :, None, None]         # (B, S_max, 1, 1)
+    k_cache = torch.where(sel, k_new[:, 0][:, None], cache.k)
+    v_cache = torch.where(sel, v_new[:, 0][:, None], cache.v)
+
+    # slot i holds absolute position pos - ((slot - i) mod S_max)
+    abs_pos = pos[:, None] - torch.remainder(slot[:, None] - idx, S_max)
+    valid = (abs_pos >= 0) & (abs_pos <= pos[:, None])
+    if cfg.sliding_window is not None:
+        valid &= abs_pos > (pos[:, None] - cfg.sliding_window)
+
+    K, hd = cfg.n_kv_heads, cfg.hd
+    g = cfg.n_heads // K
+    qh = q.reshape(B, K, g, hd)
+    # products of the cache's dtype, summed in float32
+    s = torch.einsum("bkgh,bskh->bkgs", qh.float(), k_cache.float()) \
+        / math.sqrt(hd)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", pr.to(v_cache.dtype).float(),
+                       v_cache.float())
+    out = out.reshape(B, 1, -1).to(x.dtype) @ p["wo"]
+    return out, KVCache(k_cache, v_cache, cache.length + 1)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int,
+                  dtype: torch.dtype = torch.bfloat16, *,
+                  device: torch.device | str = "cuda") -> KVCache:
+    """A zero cache of ``seq_len`` slots (``window`` under a sliding
+    window) whose length reads ``seq_len``, as the reference's does; a
+    decode replay from the start resets the length to 0."""
+    S = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    shape = (batch, S, cfg.n_kv_heads, cfg.hd)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.full((batch,), seq_len, dtype=torch.int32,
+                              device=device))

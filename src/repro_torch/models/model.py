@@ -1,17 +1,20 @@
-"""The language model and its train step, the port's copy of the JAX
-package's ``models/model.py`` for dense attention stacks.
+"""The language model, its train step and its serving path, the port's
+copy of the JAX package's ``models/model.py`` for stacks of attention,
+mLSTM and sLSTM blocks.
 
-``embed -> n_layers x (attention block + SwiGLU FFN) -> norm -> head``.
-Parameters are a nested dict of tensors, keyed as the reference's tree:
-``embed``, ``final_norm``, ``lm_head`` (untied only) and ``layers``, a
-list with one ``{"pos0": {"pre_norm", "attn": {...}, "ffn_norm",
-"ffn": {...}}}`` per layer where the reference stacks each leaf over a
-leading ``n_rep`` axis.  With ``cfg.remat`` each layer runs under
-``torch.utils.checkpoint`` (non-reentrant), the reference's
-``jax.checkpoint`` of the scanned body: the backward recomputes the
-layer's forward, so a flash-attention forward launches twice per layer
-and training step.  The reference's ``ShardHints`` are TPU-mesh tooling
-and are not ported.
+``embed -> n_rep x pattern -> norm -> head``: ``pattern`` is a short tuple
+of block kinds (``attn``, ``mlstm``, ``slstm``), each block followed by a
+dense SwiGLU FFN when ``d_ff > 0``.  Parameters are a nested dict of
+tensors, keyed as the reference's tree: ``embed``, ``final_norm``,
+``lm_head`` (untied only) and ``layers``, a list with one ``{"pos0": {...},
+"pos1": {...}}`` per repetition of the pattern where the reference stacks
+each leaf over a leading ``n_rep`` axis.  Decode caches mirror
+``layers``: a list of ``{"pos<i>": KVCache | MLSTMState | SLSTMState}``.
+With ``cfg.remat`` each repetition runs under ``torch.utils.checkpoint``
+(non-reentrant), the reference's ``jax.checkpoint`` of the scanned body:
+the backward recomputes the forward, so a flash-attention forward
+launches twice per layer and training step.  The reference's
+``ShardHints`` are TPU-mesh tooling and are not ported.
 """
 from __future__ import annotations
 
@@ -22,9 +25,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device, seeded_generator
 from . import attention as attn
+from . import ssm
 from .config import ModelConfig
 from .layers import dense_init, rms_norm
 from .moe import dense_ffn, init_dense_ffn
+
+BLOCK_KINDS = ("attn", "mlstm", "slstm")
 
 
 def tree_items(tree, prefix: str = "") -> Iterator[tuple[str, torch.Tensor]]:
@@ -60,14 +66,16 @@ def tree_unflatten(like, leaves):
 
 
 class Transformer:
-    """A dense attention-only language model.  Configs that need a piece
-    the port does not have yet raise ``NotImplementedError`` naming it."""
+    """A language model of attention, mLSTM and sLSTM blocks.  Configs that
+    need a piece the port does not have yet raise ``NotImplementedError``
+    naming it."""
 
     def __init__(self, cfg: ModelConfig):
         missing = []
-        if tuple(cfg.pattern) != ("attn",):
-            missing.append(f"blocks {cfg.pattern} other than ('attn',) "
-                           "(models/ssm.py, cross-attention)")
+        other = [k for k in cfg.pattern if k not in BLOCK_KINDS]
+        if other:
+            missing.append(f"blocks {tuple(other)} (mamba in models/ssm.py, "
+                           "cross-attention in models/attention.py)")
         if cfg.n_experts > 0:
             missing.append("the mixture-of-experts FFN (models/moe.py)")
         if cfg.xattn_tokens:
@@ -97,28 +105,48 @@ class Transformer:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(g, D, cfg.vocab, dtype)
         params["final_norm"] = torch.ones((D,), device=dev)
+        init_block = {"attn": attn.init_attention, "mlstm": ssm.init_mlstm,
+                      "slstm": ssm.init_slstm}
         layers = []
         for _ in range(cfg.n_rep):
-            blk = {"pre_norm": torch.ones((D,), device=dev),
-                   "attn": attn.init_attention(g, cfg, dtype)}
-            if cfg.d_ff > 0:
-                blk["ffn_norm"] = torch.ones((D,), device=dev)
-                blk["ffn"] = init_dense_ffn(g, cfg, dtype)
-            layers.append({"pos0": blk})
+            rep = {}
+            for pos, kind in enumerate(cfg.pattern):
+                blk = {"pre_norm": torch.ones((D,), device=dev),
+                       kind: init_block[kind](g, cfg, dtype)}
+                if cfg.d_ff > 0:
+                    blk["ffn_norm"] = torch.ones((D,), device=dev)
+                    blk["ffn"] = init_dense_ffn(g, cfg, dtype)
+                rep[f"pos{pos}"] = blk
+            layers.append(rep)
         params["layers"] = layers
         for t in tree_leaves(params):
             t.requires_grad_(True)
         return params
 
-    def _apply_block(self, blk: dict, x: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
+    # ------------------------------------------------------------------
+    # full sequence
+    # ------------------------------------------------------------------
+    def _ffn(self, blk: dict, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.d_ff > 0:
+            x = x + dense_ffn(blk["ffn"], rms_norm(x, blk["ffn_norm"],
+                                                   self.cfg.norm_eps))
+        return x
+
+    def _apply_rep(self, rep: dict, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+        """One repetition of the pattern over the full sequence."""
         cfg = self.cfg
-        h = rms_norm(x, blk["pre_norm"], cfg.norm_eps)
-        x = x + attn.attention_block(blk["attn"], h, cfg=cfg,
-                                     positions=positions)
-        if cfg.d_ff > 0:
-            h = rms_norm(x, blk["ffn_norm"], cfg.norm_eps)
-            x = x + dense_ffn(blk["ffn"], h)
+        for pos, kind in enumerate(cfg.pattern):
+            blk = rep[f"pos{pos}"]
+            h = rms_norm(x, blk["pre_norm"], cfg.norm_eps)
+            if kind == "attn":
+                y = attn.attention_block(blk["attn"], h, cfg=cfg,
+                                         positions=positions)
+            elif kind == "mlstm":
+                y = ssm.mlstm_block(blk["mlstm"], h, cfg)
+            else:
+                y = ssm.slstm_block(blk["slstm"], h, cfg)
+            x = self._ffn(blk, x + y)
         return x
 
     def _embed(self, params: dict, batch: dict) -> torch.Tensor:
@@ -137,12 +165,12 @@ class Transformer:
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
-        for layer in params["layers"]:
+        for rep in params["layers"]:
             if remat:
-                x = checkpoint(self._apply_block, layer["pos0"], x,
-                               positions, use_reentrant=False)
+                x = checkpoint(self._apply_rep, rep, x, positions,
+                               use_reentrant=False)
             else:
-                x = self._apply_block(layer["pos0"], x, positions)
+                x = self._apply_rep(rep, x, positions)
         return self._head(params, x), torch.zeros((), device=x.device)
 
     def loss(self, params: dict, batch: dict
@@ -162,6 +190,76 @@ class Transformer:
             ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
         total = ce + self.cfg.router_aux_weight * aux
         return total, {"ce": ce, "moe_aux": aux}
+
+    # ------------------------------------------------------------------
+    # decode path
+    # ------------------------------------------------------------------
+    def init_caches(self, batch: int, seq_len: int, *,
+                    device: torch.device | str = "cuda") -> list:
+        """Empty caches, one ``{"pos<i>": ...}`` per repetition: KV caches
+        of ``seq_len`` slots for attention, zero recurrent states for the
+        mLSTM and sLSTM blocks."""
+        cfg, dev = self.cfg, resolve_device(device)
+        make = {"attn": lambda: attn.init_kv_cache(cfg, batch, seq_len,
+                                                   self.dtype, device=dev),
+                "mlstm": lambda: ssm.init_mlstm_state(cfg, batch, device=dev),
+                "slstm": lambda: ssm.init_slstm_state(cfg, batch, device=dev)}
+        return [{f"pos{pos}": make[kind]() for pos, kind in
+                 enumerate(cfg.pattern)} for _ in range(cfg.n_rep)]
+
+    def prefill(self, params: dict, batch: dict, max_len: int
+                ) -> tuple[torch.Tensor, list]:
+        """One-pass prompt processing: the full-sequence forward that also
+        returns decode-ready caches (KV rings, recurrent states).
+        ``batch``: ``{"tokens": (B, S)}``; ``max_len`` sizes the KV caches.
+        Returns (last-position logits (B, V), caches)."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        caches = []
+        for rep in params["layers"]:
+            new = {}
+            for pos, kind in enumerate(cfg.pattern):
+                blk = rep[f"pos{pos}"]
+                h = rms_norm(x, blk["pre_norm"], cfg.norm_eps)
+                if kind == "attn":
+                    y, cache = attn.attention_prefill(
+                        blk["attn"], h, cfg=cfg, positions=positions,
+                        max_len=max_len)
+                elif kind == "mlstm":
+                    y, cache = ssm.mlstm_block(blk["mlstm"], h, cfg,
+                                               return_state=True)
+                else:
+                    y, cache = ssm.slstm_block(blk["slstm"], h, cfg,
+                                               return_state=True)
+                x = self._ffn(blk, x + y)
+                new[f"pos{pos}"] = cache
+            caches.append(new)
+        return self._head(params, x[:, -1, :]), caches
+
+    def decode_step(self, params: dict, caches: list, batch: dict
+                    ) -> tuple[torch.Tensor, list]:
+        """One-token decode.  ``batch``: ``{"token": (B, 1)}``.  Returns
+        (logits (B, V), the next caches)."""
+        cfg = self.cfg
+        x = params["embed"][batch["token"]]
+        new_caches = []
+        for rep, rep_caches in zip(params["layers"], caches, strict=True):
+            new = {}
+            for pos, kind in enumerate(cfg.pattern):
+                blk, cache = rep[f"pos{pos}"], rep_caches[f"pos{pos}"]
+                h = rms_norm(x, blk["pre_norm"], cfg.norm_eps)
+                if kind == "attn":
+                    y, cache = attn.attention_decode(blk["attn"], h, cache,
+                                                     cfg=cfg)
+                elif kind == "mlstm":
+                    y, cache = ssm.mlstm_decode(blk["mlstm"], h, cache, cfg)
+                else:
+                    y, cache = ssm.slstm_decode(blk["slstm"], h, cache, cfg)
+                x = self._ffn(blk, x + y)
+                new[f"pos{pos}"] = cache
+            new_caches.append(new)
+        return self._head(params, x[:, -1, :]), new_caches
 
 
 class TrainState(NamedTuple):
@@ -184,3 +282,10 @@ def make_train_step(model: Transformer, optimizer):
         metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
         return TrainState(state.params, opt_state, state.step + 1), metrics
     return train_step
+
+
+def make_serve_step(model: Transformer):
+    """``(params, caches, batch) -> (logits, caches)``: one decode step."""
+    def serve_step(params: dict, caches: list, batch: dict):
+        return model.decode_step(params, caches, batch)
+    return serve_step

@@ -24,6 +24,14 @@ normal inputs, float32 outputs and lse within 2e-5 and gradients within
 1e-4 of the largest plain gradient.  A bfloat16 output is the float32
 result rounded once in each, so the two may sit one bfloat16 ulp apart
 where they straddle a rounding boundary: rtol 2^-7.
+
+The chunkwise mLSTM kernel sums its products as fused multiply-adds in
+tile order and its cumulative gate sum in step order, the plain version
+as PyTorch's matrix products and ``cumsum`` do: h, C and n rtol 1e-4,
+atol 2e-4 (tighter than the reference's own kernel-vs-oracle 2e-3 /
+2e-4), the stabilizer m atol 1e-5 (one float32 ulp of a cumulative gate
+sum of ~30).  Through a whole model (the xLSTM smoke config, float32)
+the card's logits agree with the CPU's at rtol 1e-4, atol 1e-4.
 """
 import numpy as np
 import pytest
@@ -34,6 +42,7 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_dkv_cuda, flash_dq_cuda, flash_fwd_cuda)
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk_cuda  # noqa: E402
 from repro_torch.kernels.segment_activations import (  # noqa: E402
     segment_activations_bwd_cuda, segment_activations_cuda)
 from repro_torch.kernels.vgm_decode import vgm_decode_table_cuda  # noqa: E402
@@ -41,7 +50,8 @@ from repro_torch.kernels.vgm_encode import (  # noqa: E402
     vgm_encode_cuda, vgm_encode_table_cuda)
 from repro_torch.kernels.weighted_agg import weighted_agg_cuda  # noqa: E402
 from torch_kernel_inputs import (ACT_LAYOUTS, activation_inputs,  # noqa: E402
-                                 as_tensors, decode_inputs, encode_inputs)
+                                 as_tensors, decode_inputs, encode_inputs,
+                                 mlstm_inputs)
 
 
 @pytest.fixture
@@ -264,3 +274,91 @@ def test_flash_wrappers_check_inputs(cuda):
         flash_fwd_cuda(q, k.bfloat16(), v, **mask)
     with pytest.raises(RuntimeError, match="requires grad"):
         flash_fwd_cuda(q.requires_grad_(), k, v, **mask)
+
+
+MLSTM_CASES = [  # BH, S, hd, chunk, constant log_f
+    (2, 64, 32, 16, None), (4, 128, 64, 32, None), (1, 256, 128, 128, None),
+    (3, 96, 16, 32, None),        # the reference's kernel-test shapes
+    (1, 32, 16, 16, -30.0),       # strong decay: the state resets every step
+    (16, 512, 128, 32, None),     # the xlstm-1.3b smoke config's head dim
+    (5, 256, 64, 256, None),      # one chunk, S == L
+    (3, 36, 48, 12, None),        # L and hd not powers of two, BH odd
+    (16, 2048, 1024, 256, None),  # the full-width prefill's shape
+]
+
+
+@pytest.mark.parametrize("case", MLSTM_CASES)
+def test_mlstm_chunk_matches_plain(cuda, case):
+    BH, S, hd, chunk, log_f = case
+    args = _on(cuda, mlstm_inputs(BH + S + hd, BH, S, hd, log_f=log_f))
+    with ops.dispatch_scope() as d:
+        h, (C, n, m) = ops.mlstm_chunk(*args, chunk=chunk, return_state=True)
+        h_only = ops.mlstm_chunk(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    assert dict(d) == {"mlstm_chunk": 2}
+    p_h, (p_C, p_n, p_m) = tref.mlstm_chunk_plain(*args, chunk=chunk,
+                                                  return_state=True)
+    for got, want in ((h, p_h), (h_only, p_h), (C, p_C), (n, p_n)):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
+    torch.testing.assert_close(m, p_m, rtol=0, atol=1e-5)
+
+
+def test_mlstm_chunk_refuses_grad(cuda):
+    q, k, v, lf, li = _on(cuda, mlstm_inputs(1, 2, 32, 16))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        mlstm_chunk_cuda(q.requires_grad_(), k, v, lf, li, chunk=16)
+    with pytest.raises(NotImplementedError, match="xLSTM training"):
+        ops.mlstm_chunk(q, k, v, lf, li, chunk=16)
+    with torch.no_grad():
+        assert ops.mlstm_chunk(q.detach(), k, v, lf, li,
+                               chunk=16).shape == (2, 32, 16)
+
+
+def test_mlstm_chunk_wrapper_checks_shapes(cuda):
+    q, k, v, lf, li = _on(cuda, mlstm_inputs(2, 2, 512, 16))
+    with pytest.raises(ValueError, match="not a multiple of chunk"):
+        mlstm_chunk_cuda(q, k, v, lf, li, chunk=48)
+    with pytest.raises(ValueError, match="outside"):
+        mlstm_chunk_cuda(q, k, v, lf, li, chunk=512)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mlstm_chunk_cuda(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                         v[..., :8].contiguous(), lf, li, chunk=16)
+    with pytest.raises(ValueError, match="log_f has shape"):
+        mlstm_chunk_cuda(q, k, v, lf[:, :-1].contiguous(), li, chunk=16)
+    with pytest.raises(TypeError, match="float32"):
+        mlstm_chunk_cuda(q, k.double(), v, lf, li, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        mlstm_chunk_cuda(q, k, v.transpose(1, 2).contiguous().transpose(1, 2),
+                         lf, li, chunk=16)
+
+
+def test_xlstm_prefill_on_the_card_matches_the_cpu(cuda):
+    """The xlstm-1.3b smoke model (float32) prefilled on the card, through
+    one kernel launch per mLSTM layer, against the same prefill on the
+    CPU; then one decode step from each side's caches."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Transformer, tree_leaves, tree_unflatten
+    cfg = dataclasses.replace(get_smoke_config("xlstm-1.3b"), dtype="float32",
+                              n_layers=4)
+    model = Transformer(cfg)
+    params = model.init(seed=3, device="cpu")
+    params_c = tree_unflatten(params, [t.detach().to(cuda)
+                                       for t in tree_leaves(params)])
+    tk = torch.randint(0, cfg.vocab, (2, 128),
+                       generator=torch.Generator().manual_seed(3))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        with ops.dispatch_scope() as d:
+            logits, caches = model.prefill(params_c, {"tokens": tk.to(cuda)},
+                                           160)
+            torch.cuda.synchronize()
+        logits_cpu, caches_cpu = model.prefill(params, {"tokens": tk}, 160)
+        tok = torch.argmax(logits_cpu, -1)[:, None]
+        n_card, _ = model.decode_step(params_c, caches, {"token": tok.to(cuda)})
+        n_cpu, _ = model.decode_step(params, caches_cpu, {"token": tok})
+    assert dict(d) == {"mlstm_chunk": 2}
+    torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(n_card.cpu(), n_cpu, rtol=1e-4, atol=1e-4)

@@ -207,7 +207,7 @@ def test_train_step_gradients_match_reference(arch):
 
 
 def test_transformer_refuses_what_is_not_ported():
-    for arch in ("mixtral-8x22b", "xlstm-1.3b", "hubert-xlarge",
+    for arch in ("mixtral-8x22b", "jamba-1.5-large-398b", "hubert-xlarge",
                  "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="port does not have"):
             Transformer(get_smoke_config(arch))

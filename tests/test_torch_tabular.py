@@ -225,7 +225,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "tabular.metrics", "core.divergence", "core.encoding",
                  "core.weighting", "core.aggregation", "core.comm_model",
                  "core.architectures", "fed.merge", "fed.setup",
-                 "fed.program", "interop"):
+                 "fed.program", "interop", "models.ssm",
+                 "kernels.mlstm_chunk", "launch.serve"):
         assert f"repro_torch.{name}" in imported, name
 
 

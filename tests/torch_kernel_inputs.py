@@ -86,3 +86,19 @@ ACT_LAYOUTS = {
     "width1": spans_of([(1, "softmax"), (1, "tanh"), (3, "softmax")]),
     "one_span": spans_of([(18, "softmax")]),
 }
+
+
+def mlstm_inputs(seed, BH, S, hd, log_f=None):
+    """The chunkwise mLSTM's inputs as the reference's kernel tests draw
+    them (``tests/test_kernels.py``): q ~ N(0, 1) / sqrt(hd) (pre-scaled),
+    k, v ~ N(0, 1), log_f = log_sigmoid(2 + N(0, 1)) (or the constant
+    ``log_f``), log_i ~ 0.5 N(0, 1); float32 arrays."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(BH, S, hd)) / np.sqrt(hd)
+    k = rng.normal(size=(BH, S, hd))
+    v = rng.normal(size=(BH, S, hd))
+    lf = -np.logaddexp(0.0, -(2.0 + rng.normal(size=(BH, S))))
+    if log_f is not None:
+        lf = np.full((BH, S), log_f)
+    li = 0.5 * rng.normal(size=(BH, S))
+    return tuple(np.asarray(a, np.float32) for a in (q, k, v, lf, li))
