@@ -8,8 +8,10 @@ From the root of the repository.  Imports only ``repro_torch`` (from
 which stops the run with a non-zero exit on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the six CUDA sources from ``src/repro_torch/csrc`` (one nvcc per
-   source, in parallel) into ``build/repro_torch``;
+2. build the seven CUDA sources from ``src/repro_torch/csrc`` (one nvcc per
+   source, in parallel) into ``build/repro_torch``, and count the HGMMA
+   (``wgmma``) instructions of every bf16 flash kernel in the built
+   library (``cuobjdump -sass``): each must have some;
 3. register two tenants at full width: ``adult`` and ``intrusion`` from
    ``make_dataset`` at the paper's 40,000 rows, encoders fitted on the card,
    a ``ctgan_paper.CONFIG`` generator (z 128, hidden (256, 256)) from a fixed
@@ -46,8 +48,9 @@ which stops the run with a non-zero exit on failure:
    through ``repro_torch.launch.train.run_federated``: finite losses,
    clients bit-identical after each merge, per round 480 flash forward
    launches (30 layers x 8 local steps, twice under remat), 240 dq, 240
-   dk/dv and one ``weighted_agg``; seconds per round, tokens/s and the
-   card's busy share of one more round;
+   dk/dv and one ``weighted_agg``, the mean loss per round within 1e-2 of
+   10.3518 / 9.0413 (the CUDA-core flash kernels' run); seconds per round,
+   tokens/s and the card's busy share of one more round;
 11. the per-column ``encode_loop`` on ``adult`` at 40,000 rows: one
    single-column ``vgm_encode`` launch per continuous column, equal to the
    one-dispatch ``encode`` with the same Gumbel noise;
@@ -68,7 +71,8 @@ which stops the run with a non-zero exit on failure:
 14. each kernel at its main path's shapes against its plain PyTorch version
    on the card, with its time, the plain version's time, its bound and,
    where one PyTorch call computes the same function, that call's time;
-   the flash kernels also on a ragged and a sliding-window case against
+   for the flash kernels also the products done against the least; and
+   the flash kernels on a ragged and a sliding-window case against
    autograd through the plain full-matrix attention.
 
 Phases 3-5 are the serving main path, phase 6 the CTGAN training main
@@ -84,6 +88,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -105,6 +111,12 @@ N_ROWS = 40_000
 FED_CLIENTS, FED_ROUNDS, FED_STEPS = 5, 4, 2
 F32_EPS = 2.0 ** -23
 LM_CLIENTS, LM_ROUNDS, LM_STEPS, LM_BATCH, LM_SEQ = 4, 2, 2, 4, 2048
+# the LM run's mean loss per round with the CUDA-core flash kernels
+LM_LOSSES = (10.3518, 9.0413)
+# the C entries of the bf16 flash library and their kernels' names
+SM90_KERNELS = {"flash_attention_fwd": "flash_fwd_sm90",
+                "flash_attention_dq": "flash_dq_sm90",
+                "flash_attention_dkv": "flash_dkv_sm90"}
 XL_BATCH, XL_PROMPT, XL_GEN, XL_SPLIT = 4, 2048, 32, 1792
 
 
@@ -226,6 +238,23 @@ def bound_ms(n_bytes: float, n_ops: float,
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hgmma_counts(library: Path) -> dict:
+    """HGMMA instructions (``wgmma`` in SASS) in each kernel of a built
+    library, by mangled kernel name, from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def same_params(states) -> bool:
@@ -522,6 +551,9 @@ def lm_phase(dev) -> dict:
         check(got == want, f"LM round {r}: launches {got}, expected {want}")
         prev = c
     check(abs(float(w.sum()) - 1.0) < 1e-5, f"LM weights sum to {w.sum()}")
+    loss_err = max(abs(a - b) for a, b in zip(losses, LM_LOSSES, strict=True))
+    check(loss_err <= 1e-2, f"LM mean loss per round {losses} vs "
+          f"{list(LM_LOSSES)} with the CUDA-core flash kernels: {loss_err:.3g}")
     start = t0
     round_s = []
     for done, checked in marks:
@@ -534,7 +566,8 @@ def lm_phase(dev) -> dict:
           f"{LM_CLIENTS} non-IID clients x {LM_ROUNDS} rounds x {LM_STEPS} "
           f"local steps of {LM_BATCH} x {LM_SEQ} tokens, bf16, remat "
           f"{cfg.remat}; client weights {np.round(w, 6).tolist()}; mean loss "
-          f"per round {[round(x, 4) for x in losses]}; seconds per round "
+          f"per round {[round(x, 4) for x in losses]} (CUDA-core flash "
+          f"kernels: {list(LM_LOSSES)}); seconds per round "
           f"{[round(x, 3) for x in round_s]} (the first includes the run's "
           f"setup: data, weights, init); {tokens / round_s[-1]:.0f} tokens/s "
           f"in the last round; launches per round {want} (gated); clients "
@@ -885,6 +918,17 @@ def main() -> int:
                 _build.build_log(stem).splitlines() if "Used" in ln]
         print(f"  ptxas {stem}: {'; '.join(used) or 'built earlier'}")
     record["build_s"] = build_s
+    counts = hgmma_counts(_build.library_path("flash_attention_sm90"))
+    hgmma = {}
+    for entry, kernel in SM90_KERNELS.items():
+        mine = {fn: n for fn, n in counts.items() if kernel in fn}
+        check(len(mine) == 3 and all(mine.values()),
+              f"{entry}: HGMMA per instantiation {mine}, expected three "
+              "kernels (hd 32, 64, 128) each with some")
+        hgmma[entry] = sorted(mine.values())
+    print(f"HGMMA instructions per bf16 flash kernel (hd 32, 64, 128 "
+          f"instantiations, cuobjdump -sass): {hgmma}")
+    record["hgmma"] = hgmma
     lap("card and build")
 
     # ---- 3-5. the main path -------------------------------------------
@@ -1239,7 +1283,8 @@ def main() -> int:
              replaces="src/repro/kernels/vgm_encode.py:89",
              launches=record["encode_loop"]["launches"]["vgm_encode"],
              shape=f"x ({Nq},), K {K0}"),
-        dict(name="flash_attention_fwd", stem="flash_attention",
+        dict(name="flash_attention_fwd", stem="flash_attention_sm90",
+             products=(4, 2),
              kern=lambda: flash_fwd_cuda(fq, fk, fv, **mask),
              plain=lambda: plain.flash_attention_fwd_ref(fq, fk, fv, **mask),
              library=lambda: F.scaled_dot_product_attention(fq, fk, fv,
@@ -1249,7 +1294,8 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:167",
              launches=lm_launches["flash_attention_fwd"],
              shape=f"({LM_BATCH}, 9, {Sf}, {hd}) bf16, causal"),
-        dict(name="flash_attention_dq", stem="flash_attention",
+        dict(name="flash_attention_dq", stem="flash_attention_sm90",
+             products=(4, 3),
              kern=lambda: flash_dq_cuda(*bwd_args, **mask),
              plain=lambda: plain.flash_attention_dq_ref(*bwd_args, **mask),
              library=lib_bwd, compare=cmp_grads,
@@ -1258,7 +1304,8 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:199",
              launches=lm_launches["flash_attention_dq"],
              shape=f"({LM_BATCH}, 9, {Sf}, {hd}) bf16, causal"),
-        dict(name="flash_attention_dkv", stem="flash_attention",
+        dict(name="flash_attention_dkv", stem="flash_attention_sm90",
+             products=(6, 4),
              kern=lambda: flash_dkv_cuda(*bwd_args, **mask),
              plain=lambda: plain.flash_attention_dkv_ref(*bwd_args, **mask),
              library=lib_bwd, compare=cmp_grads,
@@ -1378,6 +1425,11 @@ def main() -> int:
         cold_txt = ("" if not extra else
                     f"; cold L2: kernel {extra['cold_ms'] * 1e3:.2f} us, "
                     f"library {extra['library_cold_ms'] * 1e3:.2f} us")
+        if "products" in case:
+            done, least = case["products"]
+            timing[name]["products"] = [done, least]
+            cold_txt += (f"; products {done} against the least {least} "
+                         f"({done / least:.2f}x), bound on the least")
         print(f"kernel {name} [{case['shape']}]: {ms * 1e3:.2f} us, plain "
               f"{plain_ms * 1e3:.2f} us ({source}); per call with launch "
               f"{call_ms * 1e3:.2f} us, plain {plain_call_ms * 1e3:.2f} us "

@@ -1,21 +1,22 @@
-// Flash attention, forward and backward, sm_90a.
+// Flash attention, forward and backward, sm_90a, for float32 inputs.
 //
 // Replaces the three Pallas calls of `flash_attention` in the JAX package
 // (src/repro/kernels/flash_attention.py:269): the forward `_fwd_call`
 // (:167, body `_flash_kernel` :35), the backward dq call (:199, body
 // `_flash_bwd_dq_kernel` :82) and the backward dk/dv call (:216, body
-// `_flash_bwd_dkv_kernel` :118).  Inputs are padded and head-matched by
-// the caller (kernels/flash_attention.py): q, k, v (B*H, S, hd) rows of
-// float32 or bfloat16, keys at or past `kv_len` are padding, with an
-// optional causal mask and sliding window.
+// `_flash_bwd_dkv_kernel` :118) for float32 q, k, v; bfloat16 inputs go
+// to the tensor-core kernels of flash_attention_sm90.cu (bf16 tensor cores
+// would need a three-way split of each float32 operand here).  Inputs are
+// padded and head-matched by the caller (kernels/flash_attention.py): q,
+// k, v (B*H, S, hd) float32 rows, keys at or past `kv_len` are padding,
+// with an optional causal mask and sliding window.
 //
 // What bounds it: operations.  At the training path's (4, 9, 2048, 64)
 // the forward's two products take 19.3 GFLOP (causal) against 38 MB of
 // inputs and outputs, about 500 flop per byte, far above the card's
 // balance point; the backward recomputes the scores in both of its
-// kernels (7 products).  Design, the simple form first: every product
-// runs on the CUDA cores in float32 (explicit fmaf), not on the tensor
-// cores (a wgmma/TMA version is later work).  A block of 256 threads owns
+// kernels (7 products).  Design, the simple form: every product runs on
+// the CUDA cores in float32 (explicit fmaf).  A block of 256 threads owns
 // one 64-row tile of one (batch, head); the tiles it meets stream
 // through shared memory as float32 rows padded to hd+1 floats, so the
 // column reads of the products hit 16 different banks.  Thread (ty, tx)
@@ -34,7 +35,6 @@
 // are float32.  Sums run in another order than the plain PyTorch
 // versions (kernels/ref.py), and the products are fused multiply-adds,
 // so the two agree to rounding, not bit for bit.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -45,15 +45,6 @@ constexpr int kThreads = 256;    // a 16 x 16 grid
 constexpr int kLdP = kTile + 1;  // padded row of a 64 x 64 score tile
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // Rows [row0, row0 + kTile) of an (s, HD) slab into a (kTile, HD + 1)
 // float32 tile, each value times `mul`; rows past s are zero.
 template <typename T, int HD>
@@ -63,7 +54,7 @@ __device__ __forceinline__ void load_tile(float* tile,
   for (int i = threadIdx.x; i < kTile * HD; i += kThreads) {
     const int r = i / HD, c = i % HD, row = row0 + r;
     tile[r * (HD + 1) + c] =
-        row < s ? to_f32(src[(long long)row * HD + c]) * mul : 0.0f;
+        row < s ? src[(long long)row * HD + c] * mul : 0.0f;
   }
 }
 
@@ -196,7 +187,7 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = fmaxf(l[i], 1e-30f);
     T* orow = out + (bh * sq + row) * HD;
 #pragma unroll
-    for (int c = 0; c < CW; ++c) store(orow + tx + 16 * c, acc[i][c] / denom);
+    for (int c = 0; c < CW; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
     if (tx == 0) lse[bh * sq + row] = m[i] + logf(denom);
   }
 }
@@ -495,16 +486,14 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// Calls F<T, HD>(args...) for the element type (0 float32, 1 bfloat16)
-// and head dim; cudaErrorInvalidValue for any other.
+// Calls F<float, HD>(args...) for float32 inputs (bf16 = 0) of head dim
+// 32, 64 or 128; cudaErrorInvalidValue for bfloat16 (flash_attention_sm90.cu
+// takes those) or another head dim.
 #define FLASH_DISPATCH(F, ...)                                            \
-  switch (hd * 2 + bf16) {                                                \
-    case 64: return F<float, 32>(__VA_ARGS__);                            \
-    case 65: return F<__nv_bfloat16, 32>(__VA_ARGS__);                    \
-    case 128: return F<float, 64>(__VA_ARGS__);                           \
-    case 129: return F<__nv_bfloat16, 64>(__VA_ARGS__);                   \
-    case 256: return F<float, 128>(__VA_ARGS__);                          \
-    case 257: return F<__nv_bfloat16, 128>(__VA_ARGS__);                  \
+  switch (bf16 ? 0 : hd) {                                                \
+    case 32: return F<float, 32>(__VA_ARGS__);                            \
+    case 64: return F<float, 64>(__VA_ARGS__);                            \
+    case 128: return F<float, 128>(__VA_ARGS__);                          \
     default: return (int)cudaErrorInvalidValue;                           \
   }
 

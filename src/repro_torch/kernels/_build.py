@@ -29,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("vgm_encode", "vgm_decode", "segment_activations",
-           "weighted_agg", "flash_attention", "mlstm_chunk")
+           "weighted_agg", "flash_attention", "flash_attention_sm90",
+           "mlstm_chunk")
 # --fmad=false: no contraction into fused multiply-adds, so each kernel
 # rounds like its plain version; no --use_fast_math: IEEE expf/logf/tanhf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -83,6 +84,11 @@ def build_all() -> float:
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         return time.perf_counter() - t0
+
+
+def library_path(stem: str) -> Path:
+    """The shared library ``csrc/<stem>.cu`` builds into in this tree."""
+    return _target(stem)
 
 
 def build_log(stem: str) -> str:

@@ -1,6 +1,12 @@
-"""Flash attention: the CUDA kernels ``csrc/flash_attention.cu`` (forward,
-backward dq, backward dk/dv), their plain PyTorch versions and the
-``autograd.Function`` that joins them.
+"""Flash attention: the CUDA kernels (forward, backward dq, backward dk/dv),
+their plain PyTorch versions and the ``autograd.Function`` that joins them.
+
+Each entry picks its library by the inputs' dtype: bfloat16, the LM path's
+type, launches the tensor-core kernels of ``csrc/flash_attention_sm90.cu``
+(``wgmma`` fed by TMA, P and dS split into bf16 terms for the second
+products); float32 launches the CUDA-core kernels of
+``csrc/flash_attention.cu``.  Both libraries export the same three C
+entries.
 
 :class:`FlashAttention` works on padded, head-matched ``(B, H, S, hd)``
 inputs, as the reference's custom VJP does
@@ -24,9 +30,12 @@ import torch
 from . import _build, ref
 from ._build import DISPATCH_COUNTS
 
-# head dims and element types the kernels are instantiated for
+# head dims and element types the kernels are instantiated for, and the
+# library (csrc/<stem>.cu) of each element type
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_STEMS = {torch.float32: "flash_attention",
+          torch.bfloat16: "flash_attention_sm90"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SHAPE = [_I] * 6 + [_F, _I, _I, _P]       # bh sq sk kv_len causal window
@@ -39,8 +48,9 @@ _DKV_ARGS = [_P] * 8 + _SHAPE
 def _check(name: str, q, k, v, do=None, lse=None, delta=None
            ) -> tuple[int, int, int, int]:
     """Raise unless q, k, v (and ``do``) are contiguous CUDA tensors of one
-    float32 or bfloat16 dtype with a head dim the kernels take, and lse and
-    delta (B, H, Sq) float32.  Returns (B*H, Sq, Sk, hd)."""
+    float32 or bfloat16 dtype with a head dim the kernels take, lse and
+    delta (B, H, Sq) float32, and, for bfloat16, every one starts on a
+    16-byte boundary.  Returns (B*H, Sq, Sk, hd)."""
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
     if q.dtype not in _DTYPES:
@@ -55,7 +65,18 @@ def _check(name: str, q, k, v, do=None, lse=None, delta=None
     if lse is not None:
         _build.check_cuda_inputs(name, q.device, lse=(lse, (B, H, Sq)),
                                  delta=(delta, (B, H, Sq)))
+        same.update(lse=(lse, None), delta=(delta, None))
+    if q.dtype == torch.bfloat16:   # the tensor-core kernels read by TMA
+        for arg, (t, _) in same.items():
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: {arg} must start on a 16-byte "
+                                 "boundary")
     return B * H, Sq, Sk, hd
+
+
+def library_stem(dtype: torch.dtype) -> str:
+    """The CUDA source whose kernels take inputs of ``dtype``."""
+    return _STEMS[dtype]
 
 
 def _shape_args(bh, sq, sk, hd, dtype, causal, window, kv_len):
@@ -75,9 +96,9 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if bh * sq == 0:
         return out, lse
-    fn = _build.kernel_function("flash_attention", "flash_attention_fwd",
-                                _FWD_ARGS)
-    _build.launch("flash_attention_fwd", "flash_attention", fn, q.device,
+    stem = library_stem(q.dtype)
+    fn = _build.kernel_function(stem, "flash_attention_fwd", _FWD_ARGS)
+    _build.launch("flash_attention_fwd", stem, fn, q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   lse.data_ptr(),
                   *_shape_args(bh, sq, sk, hd, q.dtype, causal, window, kv_len))
@@ -92,9 +113,9 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool,
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if bh * sq == 0:
         return dq
-    fn = _build.kernel_function("flash_attention", "flash_attention_dq",
-                                _DQ_ARGS)
-    _build.launch("flash_attention_dq", "flash_attention", fn, q.device,
+    stem = library_stem(q.dtype)
+    fn = _build.kernel_function(stem, "flash_attention_dq", _DQ_ARGS)
+    _build.launch("flash_attention_dq", stem, fn, q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                   *_shape_args(bh, sq, sk, hd, q.dtype, causal, window, kv_len))
@@ -110,9 +131,9 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool,
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     if bh * sk == 0:
         return dk, dv
-    fn = _build.kernel_function("flash_attention", "flash_attention_dkv",
-                                _DKV_ARGS)
-    _build.launch("flash_attention_dkv", "flash_attention", fn, q.device,
+    stem = library_stem(q.dtype)
+    fn = _build.kernel_function(stem, "flash_attention_dkv", _DKV_ARGS)
+    _build.launch("flash_attention_dkv", stem, fn, q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(),

@@ -18,12 +18,14 @@ weights may round an ulp apart: rtol 1e-6, atol 1e-7, and an all-zero
 edge gives exact +0.0.  The single-column encode equals its plain version
 exactly, as the table encode does.
 
-The flash-attention kernels sum their products as fused multiply-adds in
-tile order, the plain versions as PyTorch's matrix products do: for unit
-normal inputs, float32 outputs and lse within 2e-5 and gradients within
-1e-4 of the largest plain gradient.  A bfloat16 output is the float32
-result rounded once in each, so the two may sit one bfloat16 ulp apart
-where they straddle a rounding boundary: rtol 2^-7.
+The flash-attention kernels sum their products in tile order (float32
+inputs as fused multiply-adds on the CUDA cores, bfloat16 inputs on the
+tensor cores with P and dS split into two bf16 operands), the plain
+versions as PyTorch's matrix products do: for unit normal inputs, float32
+outputs and lse within 2e-5 and gradients within 1e-4 of the largest
+plain gradient.  A bfloat16 output is the float32 result rounded once in
+each, so the two may sit one bfloat16 ulp apart where they straddle a
+rounding boundary: rtol 2^-7.
 
 The chunkwise mLSTM kernel sums its products as fused multiply-adds in
 tile order and its cumulative gate sum in step order, the plain version
@@ -49,9 +51,9 @@ from repro_torch.kernels.vgm_decode import vgm_decode_table_cuda  # noqa: E402
 from repro_torch.kernels.vgm_encode import (  # noqa: E402
     vgm_encode_cuda, vgm_encode_table_cuda)
 from repro_torch.kernels.weighted_agg import weighted_agg_cuda  # noqa: E402
-from torch_kernel_inputs import (ACT_LAYOUTS, activation_inputs,  # noqa: E402
-                                 as_tensors, decode_inputs, encode_inputs,
-                                 mlstm_inputs)
+from torch_kernel_inputs import (ACT_LAYOUTS, FLASH_CASES,  # noqa: E402
+                                 activation_inputs, as_tensors, decode_inputs,
+                                 encode_inputs, mlstm_inputs)
 
 
 @pytest.fixture
@@ -201,15 +203,6 @@ def _flash_inputs(device, B, H, S, hd, dtype, seed):
             for _ in range(4)]
 
 
-FLASH_CASES = [  # B, H, S, hd, causal, window, kv_len
-    (2, 3, 256, 64, True, None, 256),
-    (1, 2, 256, 32, False, None, 256),
-    (1, 2, 384, 128, True, None, 384),
-    (1, 2, 256, 64, True, 48, 256),
-    (2, 2, 256, 64, False, 100, 200),     # padded keys past kv_len
-]
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_kernels_match_plain(cuda, case, dtype):
@@ -237,6 +230,32 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
         assert got.dtype == torch.float32
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-4 * max(1.0, float(want.abs().max())))
+
+
+def test_flash_library_follows_dtype(cuda, monkeypatch):
+    """A bfloat16 launch reaches the tensor-core library
+    (``csrc/flash_attention_sm90.cu``), a float32 launch the CUDA-core one
+    (``csrc/flash_attention.cu``), for each of the three entries."""
+    seen = []
+    real = _build.kernel_function
+
+    def spy(stem, name, argtypes):
+        seen.append((stem, name))
+        return real(stem, name, argtypes)
+    monkeypatch.setattr(_build, "kernel_function", spy)
+    mask = {"causal": True, "window": None, "kv_len": 128}
+    for dtype, stem in ((torch.bfloat16, "flash_attention_sm90"),
+                        (torch.float32, "flash_attention")):
+        seen.clear()
+        q, k, v, do = _flash_inputs(cuda, 1, 2, 128, 64, dtype, 3)
+        out, lse = flash_fwd_cuda(q, k, v, **mask)
+        delta = torch.sum(do.float() * out.float(), dim=-1)
+        flash_dq_cuda(q, k, v, do, lse, delta, **mask)
+        flash_dkv_cuda(q, k, v, do, lse, delta, **mask)
+        torch.cuda.synchronize()
+        assert seen == [(stem, "flash_attention_fwd"),
+                        (stem, "flash_attention_dq"),
+                        (stem, "flash_attention_dkv")]
 
 
 def test_flash_attention_autograd_runs_the_kernels(cuda):
@@ -274,6 +293,12 @@ def test_flash_wrappers_check_inputs(cuda):
         flash_fwd_cuda(q, k.bfloat16(), v, **mask)
     with pytest.raises(RuntimeError, match="requires grad"):
         flash_fwd_cuda(q.requires_grad_(), k, v, **mask)
+    # the bf16 kernels' tensor maps need 16-byte aligned starts
+    kb, vb = k.bfloat16(), v.bfloat16()
+    shifted = torch.zeros(kb.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(kb.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_fwd_cuda(shifted, kb, vb, **mask)
 
 
 MLSTM_CASES = [  # BH, S, hd, chunk, constant log_f

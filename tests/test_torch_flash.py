@@ -8,6 +8,10 @@ forward, dq and dk/dv on the CPU).  On the card the same function
 launches the CUDA kernels; ``tests/test_torch_cuda.py`` holds those
 against these plain versions.
 
+The last tests emulate, in plain PyTorch, where the card's bf16
+tensor-core kernels round (``csrc/flash_attention_sm90.cu``), and hold the
+emulation to the card tests' gates against the plain versions.
+
 Tolerances: float32 outputs and lse rtol 1e-5, atol 1e-5, gradients
 rtol 1e-4, atol 1e-5 -- the same float32 arithmetic, but the Pallas
 kernel sums its online softmax tile by tile (128 keys at a time) and the
@@ -29,6 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import flash_attention as jflash  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from torch_kernel_inputs import FLASH_CASES  # noqa: E402
 
 CASES = {  # B, H, Kh, Sq, Sk, hd, causal, window
     "gqa_causal": (1, 4, 2, 128, 128, 32, True, None),
@@ -199,3 +204,100 @@ def test_sm_scale_is_float32_reciprocal_sqrt():
     args = tflash._shape_args(2, 128, 128, 32, torch.float32, True, None, 100)
     assert args[:6] == (2, 128, 128, 100, 1, 0)
     assert np.float32(args[6]) == np.float32(1.0 / math.sqrt(32))
+
+
+def test_library_stem_follows_dtype():
+    """bfloat16 inputs take the tensor-core source, float32 the CUDA-core
+    one: both export the same three entries."""
+    assert tflash.library_stem(torch.bfloat16) == "flash_attention_sm90"
+    assert tflash.library_stem(torch.float32) == "flash_attention"
+
+
+def _visible(S, kv_len, causal, window):
+    qp = torch.arange(S)[:, None]
+    kp = torch.arange(S)[None, :]
+    ok = kp < kv_len
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    return ok
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _second_product(x, y, terms):
+    """x @ y with the float32 x fed to bf16 tensor cores as ``terms`` bf16
+    terms (bf16(x), then the rounded remainders), one product each into
+    one float32 sum.  y holds bf16 values already."""
+    acc = 0.0
+    for _ in range(terms):
+        t = _bf16(x)
+        acc = acc + t @ y
+        x = x - t
+    return acc
+
+
+def _emulate_head(q, k, v, do, lse, delta, mask, rounding):
+    """One head's out, dq, dk, dv as the sm90 kernels round them: bf16
+    products exact, float32 sums, the scale after the product, P and dS
+    kept in float32 until the second products, which take the forward's P
+    as three bf16 terms and the backward's P and dS as two ("split"), or
+    each rounded to bf16 once ("single")."""
+    fwd_terms, bwd_terms = (3, 2) if rounding == "split" else (1, 1)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.where(mask, (q @ k.T) * scale, ref.NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+    out = _second_product(p, v, fwd_terms) / denom
+    p = torch.exp(s - lse[:, None])
+    ds = p * (do @ v.T - delta[:, None])
+    dq = _second_product(ds, k, bwd_terms) * scale
+    dk = _second_product(ds.T, q, bwd_terms) * scale
+    dv = _second_product(p.T, do, bwd_terms)
+    return out, dq, dk, dv
+
+
+@pytest.mark.parametrize("rounding", ["split", "single"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_tensor_core_precision_design(case, rounding):
+    """The bf16 kernels' design against the card gates: at bf16 inputs,
+    with lse and delta from the plain forward shared, S exact in float32
+    and P and dS split into bf16 terms for the second products, the output
+    stays within one bf16 ulp of the plain version's and dq/dk/dv within
+    1e-4 of the largest gradient (``tests/test_torch_cuda.py``,
+    ``chip_smoke.py``); rounding P and dS to bf16 once misses those gates
+    (the gradients by several times), which is why the kernels split."""
+    B, H, S, hd, causal, window, kv_len = case
+    rng = np.random.default_rng(S + hd)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, H, S, hd))
+                                    .astype(np.float32)).bfloat16()
+                   for _ in range(4))
+    mask = {"causal": causal, "window": window, "kv_len": kv_len}
+    out, lse = ref.flash_attention_fwd_ref(q, k, v, **mask)
+    delta = torch.sum(do.float() * out.float(), dim=-1)
+    want = (out.float(), ref.flash_attention_dq_ref(q, k, v, do, lse, delta,
+                                                    **mask),
+            *ref.flash_attention_dkv_ref(q, k, v, do, lse, delta, **mask))
+    vis = _visible(S, kv_len, causal, window)
+    got = [torch.empty_like(w) for w in want]
+    for b in range(B):
+        for h in range(H):
+            one = _emulate_head(*(t[b, h].float() for t in (q, k, v, do)),
+                                lse[b, h], delta[b, h], vis, rounding)
+            for g, x in zip(got, one):
+                g[b, h] = x
+    got[0] = _bf16(got[0])
+    out_ok = bool((torch.abs(got[0] - want[0])
+                   <= 2 ** -7 * torch.abs(want[0]) + 1e-6).all())
+    grad_err = [float(torch.abs(g - w).max()) / max(1.0, float(w.abs().max()))
+                for g, w in zip(got[1:], want[1:])]
+    if rounding == "split":
+        assert out_ok
+        assert max(grad_err) <= 1e-4, grad_err
+    else:
+        assert not out_ok
+        assert min(grad_err) > 2e-4, grad_err

@@ -102,3 +102,21 @@ def mlstm_inputs(seed, BH, S, hd, log_f=None):
         lf = np.full((BH, S), log_f)
     li = 0.5 * rng.normal(size=(BH, S))
     return tuple(np.asarray(a, np.float32) for a in (q, k, v, lf, li))
+
+
+# Flash-attention shapes the card tests hold the kernels to, and the CPU
+# test of the bf16 tensor-core kernels' precision design emulates:
+# B, H, S, hd, causal, window, kv_len.  Every query row sees some key: a
+# row that sees none (a padded row past kv_len, further than the window)
+# averages every key in the plain versions' -1e30 mask, and no kernel
+# tile that would hold those keys is visited.
+FLASH_CASES = [
+    (2, 3, 256, 64, True, None, 256),
+    (1, 2, 256, 32, False, None, 256),
+    (1, 2, 384, 128, True, None, 384),
+    (1, 2, 256, 64, True, 48, 256),
+    (2, 2, 256, 64, False, 100, 200),     # padded keys past kv_len
+    (2, 9, 2048, 64, True, None, 2048),   # the LM path's shape
+    (1, 2, 1000, 128, True, None, 1000),  # ragged: a tile crosses S
+    (1, 3, 640, 32, True, 160, 500),      # a window and padded keys
+]
