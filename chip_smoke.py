@@ -10,8 +10,9 @@ which stops the run with a non-zero exit on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the seven CUDA sources from ``src/repro_torch/csrc`` (one nvcc per
    source, in parallel) into ``build/repro_torch``, and count the HGMMA
-   (``wgmma``) instructions of every bf16 flash kernel in the built
-   library (``cuobjdump -sass``): each must have some;
+   (``wgmma``) instructions of every bf16 flash kernel and of every
+   tensor-core grid of ``mlstm_chunk_sm90`` in the built libraries
+   (``cuobjdump -sass``): each must have some;
 3. register two tenants at full width: ``adult`` and ``intrusion`` from
    ``make_dataset`` at the paper's 40,000 rows, encoders fitted on the card,
    a ``ctgan_paper.CONFIG`` generator (z 128, hidden (256, 256)) from a fixed
@@ -117,7 +118,16 @@ LM_LOSSES = (10.3518, 9.0413)
 SM90_KERNELS = {"flash_attention_fwd": "flash_fwd_sm90",
                 "flash_attention_dq": "flash_dq_sm90",
                 "flash_attention_dkv": "flash_dkv_sm90"}
-XL_BATCH, XL_PROMPT, XL_GEN, XL_SPLIT = 4, 2048, 32, 1792
+# the tensor-core grids of the mLSTM library: the main grid's two value-tile
+# widths (128 on the prefill's path) and the gated scores
+MLSTM_TC_KERNELS = ("mlstm_mainILi128E", "mlstm_mainILi64E", "mlstm_scores")
+# widths of the activations forward's layout sweep
+ACT_SWEEP_WIDTHS = (8, 16, 19, 24, 32, 40, 44, 48, 64, 128, 300)
+# the four grids of one mlstm_chunk_sm90 call, and nothing else in its trace
+MLSTM_GRIDS = ("mlstm_gates", "mlstm_prep", "mlstm_scores", "mlstm_main")
+# bf16 products the mLSTM kernel does for each product of its least work
+MLSTM_PRODUCTS = 3
+XL_BATCH, XL_PROMPT, XL_GEN, XL_SPLIT, XL_CHUNK = 4, 2048, 32, 1792, 256
 
 
 def fail(msg: str):
@@ -255,6 +265,79 @@ def hgmma_counts(library: Path) -> dict:
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
     return counts
+
+
+def mlstm_prefill_inputs(dev):
+    """The chunkwise mLSTM's inputs at the xLSTM prefill's shape: 4 prompts
+    x 4 heads, 2,048 steps, head dim 1,024, drawn as the reference's kernel
+    tests draw them."""
+    import torch
+    import torch.nn.functional as F
+    XB, XS, XD = XL_BATCH * 4, XL_PROMPT, 1024
+    gm = torch.Generator(dev).manual_seed(19)
+    mq = torch.randn((XB, XS, XD), device=dev, generator=gm) / XD ** 0.5
+    mk, mv = (torch.randn((XB, XS, XD), device=dev, generator=gm)
+              for _ in range(2))
+    mlf = F.logsigmoid(2.0 + torch.randn((XB, XS), device=dev, generator=gm))
+    mli = 0.5 * torch.randn((XB, XS), device=dev, generator=gm)
+    return mq, mk, mv, mlf, mli
+
+
+def mlstm_grid_times(dev) -> list:
+    """Device time of each of the mLSTM kernel's four grids in one call at
+    the prefill's shape, as (name, ms, launches), from a CUDA-only trace
+    taken early in the run: a short trace late in a long run came back
+    empty."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk_cuda
+    args = mlstm_prefill_inputs(dev)
+
+    def run():
+        return mlstm_chunk_cuda(*args, chunk=XL_CHUNK, return_state=True)
+    run()
+    torch.cuda.synchronize()
+    grids = device_busy(run, top=1000)[1]
+    names = sorted(re.sub(r"^void |[(]anonymous namespace[)]::", "",
+                          g).split("(")[0].split("<")[0] for g, _, _ in grids)
+    check(names == sorted(MLSTM_GRIDS) and all(n == 1 for _, _, n in grids),
+          f"mlstm_chunk: the trace of one call holds {grids}, not one launch "
+          f"each of {MLSTM_GRIDS}")
+    return grids
+
+
+def activation_layouts(dev, tau, serving) -> list:
+    """Device time per call of the activations forward in each of its two
+    layouts (the tile and the warp with its stage), each held against the
+    plain version: at the serving shape (``serving``: packed x, u and
+    kinds) and at 4,096 rows of softmax spans of one width W each, about
+    1,216 lanes a row, on both sides of the width where the kernel switches
+    from the tile to the warp."""
+    import torch
+    from repro_torch.kernels.ref import segment_activations_ref
+    from repro_torch.kernels.segment_activations import (
+        segment_activations_cuda)
+    g = torch.Generator(dev).manual_seed(23)
+    inputs = [("serving", *serving)]
+    for w in ACT_SWEEP_WIDTHS:
+        s = max(1, 1216 // w)
+        x = 2.0 * torch.randn((4096, s * w), device=dev, generator=g)
+        u = 0.01 + 0.98 * torch.rand((4096, s * w), device=dev, generator=g)
+        inputs.append((f"W {w}", x, u, torch.zeros((s, w), device=dev)))
+    rows = []
+    for what, x, u, kinds in inputs:
+        want = segment_activations_ref(x, u, kinds, tau, False)
+        row = {"inputs": what, "shape": [x.shape[0], *kinds.shape]}
+        for layout in ("tile", "warp"):
+            got = segment_activations_cuda(x, u, kinds, tau, False,
+                                           layout=layout)
+            err = float((got - want).abs().max())
+            check(err <= 2e-6, f"segment_activations {layout} layout at "
+                  f"{what}: max abs error {err:.3g}, tolerance 2e-6")
+            row[f"{layout}_ms"] = kernel_ms(
+                lambda: segment_activations_cuda(x, u, kinds, tau, True,
+                                                 layout=layout))
+        rows.append(row)
+    return rows
 
 
 def same_params(states) -> bool:
@@ -928,7 +1011,23 @@ def main() -> int:
         hgmma[entry] = sorted(mine.values())
     print(f"HGMMA instructions per bf16 flash kernel (hd 32, 64, 128 "
           f"instantiations, cuobjdump -sass): {hgmma}")
+    counts = hgmma_counts(_build.library_path("mlstm_chunk_sm90"))
+    for kernel in MLSTM_TC_KERNELS:
+        mine = [n for fn, n in counts.items() if kernel in fn]
+        check(len(mine) == 1 and mine[0] > 0,
+              f"mlstm_chunk_sm90: HGMMA in {kernel}: {mine}, expected one "
+              "kernel with some")
+        hgmma[kernel] = mine[0]
+    print("HGMMA instructions per mlstm_chunk_sm90 grid (cuobjdump -sass): "
+          + ", ".join(f"{k} {hgmma[k]}" for k in MLSTM_TC_KERNELS))
     record["hgmma"] = hgmma
+    grids = mlstm_grid_times(dev)
+    record["mlstm_grids"] = grids
+    short = [re.sub(r"^void |[(]anonymous namespace[)]::", "", g).split("(")[0]
+             for g, _, _ in grids]
+    print("mlstm_chunk grids at the prefill's shape (CUDA-only trace): "
+          + ", ".join(f"{g} {t * 1e3:.2f} us"
+                      for g, (_, t, _) in zip(short, grids)))
     lap("card and build")
 
     # ---- 3-5. the main path -------------------------------------------
@@ -1340,18 +1439,13 @@ def main() -> int:
         tol=1e-7 + 1e-6 * float(lm_stack.abs().max()),
         replaces="src/repro/kernels/weighted_agg.py:47", launches=None,
         shape=f"flat ({LM_CLIENTS}, {Dl})")
-    # the chunkwise mLSTM at the xLSTM prefill's shape: 4 prompts x 4 heads,
-    # 2,048 steps, head dim 1,024, chunks of 256; inputs drawn as the
-    # reference's kernel tests draw them
+    # the chunkwise mLSTM at the xLSTM prefill's shape, chunks of 256
     from repro_torch.kernels.mlstm_chunk import mlstm_chunk_cuda
-    XB, XS, XD, XL = XL_BATCH * 4, XL_PROMPT, 1024, 256
-    gm = torch.Generator(dev).manual_seed(19)
-    mq = torch.randn((XB, XS, XD), device=dev, generator=gm) / XD ** 0.5
-    mk, mv = (torch.randn((XB, XS, XD), device=dev, generator=gm)
-              for _ in range(2))
-    mlf = F.logsigmoid(2.0 + torch.randn((XB, XS), device=dev, generator=gm))
-    mli = 0.5 * torch.randn((XB, XS), device=dev, generator=gm)
-    m_args = (mq, mk, mv, mlf, mli)
+    m_args = mlstm_prefill_inputs(dev)
+    XB, XS, XD = m_args[0].shape
+    XL = XL_CHUNK
+
+    mlstm_gate = {}
 
     def cmp_mlstm(got, want):
         (h, (C, n, m)), (ph, (pC, pn, pm)) = got, want
@@ -1359,21 +1453,34 @@ def main() -> int:
                 ((h, ph), (C, pC), (n, pn), (m, pm))]
         ok = all(torch.allclose(a, b, rtol=1e-4, atol=2e-4)
                  for a, b in ((h, ph), (C, pC), (n, pn)))
+        # how close each output comes to its gate: the largest
+        # |got - want| / (atol + rtol |want|), 1 at the gate
+        mlstm_gate.update(
+            {k: float(((a - b).abs() / (2e-4 + 1e-4 * b.abs())).max())
+             for k, a, b in (("h", h, ph), ("C", C, pC), ("n", n, pn))},
+            m=errs[3] / 1e-5)
         return (max(errs), ok and errs[3] <= 1e-5,
                 "h, C, n rtol 1e-4 atol 2e-4; m atol 1e-5 (max abs errs "
-                + ", ".join(f"{e:.3g}" for e in errs) + ")")
+                + ", ".join(f"{e:.3g}" for e in errs) + "; of the gate: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in mlstm_gate.items())
+                + ")")
     nch = XS // XL
     mlstm_ops = XB * (2 * XL * XD * XD * (2 * nch - 1)       # C update, q C
                       + 2 * 2 * XD * nch * XL * (XL + 1) // 2)  # causal q k, S v
+    # bound: the bf16 products that the kernel does on the tensor cores
+    # (MLSTM_PRODUCTS a float32 product, on the least work); the float32
+    # bound of the least work beside it
     cases.append(dict(
-        name="mlstm_chunk", stem="mlstm_chunk",
+        name="mlstm_chunk", stem="mlstm_chunk_sm90",
+        f32_bound_ms=bound_ms(0, mlstm_ops)[0],
         kern=lambda: mlstm_chunk_cuda(*m_args, chunk=XL, return_state=True),
         plain=lambda: plain.mlstm_chunk_plain(*m_args, chunk=XL,
                                               return_state=True),
         compare=cmp_mlstm, plain_reps=2,     # ~280 launches per plain call
         bytes=4 * (4 * XB * XS * XD + 2 * XB * XS + XB * XD * XD + XB * XD
                    + XB),
-        ops=mlstm_ops, replaces="src/repro/kernels/mlstm_chunk.py:79",
+        ops=MLSTM_PRODUCTS * mlstm_ops, peak=PEAK_BF16_OPS_PER_S,
+        replaces="src/repro/kernels/mlstm_chunk.py:79",
         launches=record["xlstm"]["launches"]["mlstm_chunk"],
         shape=f"({XB}, {XS}, {XD}), L {XL}, float32, with the final state"))
     kernels, timing, shapes = [], {}, {}
@@ -1412,19 +1519,28 @@ def main() -> int:
                         "library_ms": lib_ms, "bound_ms": b_ms,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         **extra}
+        if "f32_bound_ms" in case:
+            timing[name].update(f32_bound_ms=case["f32_bound_ms"],
+                                gate=dict(mlstm_gate))
         if case["launches"] is not None:
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{case['stem']}.cu",
                 "replaces": case["replaces"], "launches": case["launches"],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                **({"f32_bound_ms": case["f32_bound_ms"]}
+                   if "f32_bound_ms" in case else {})})
         lib_txt = ("no single PyTorch call computes it" if lib is None else
                    f"library call {lib_ms * 1e3:.2f} us"
                    + (" (the dq + dk/dv pair)" if lib is lib_bwd else ""))
         cold_txt = ("" if not extra else
                     f"; cold L2: kernel {extra['cold_ms'] * 1e3:.2f} us, "
                     f"library {extra['library_cold_ms'] * 1e3:.2f} us")
+        if "f32_bound_ms" in case:
+            cold_txt += (f"; bound of {MLSTM_PRODUCTS} bf16 products on the "
+                         f"least work; float32 bound "
+                         f"{case['f32_bound_ms'] * 1e3:.2f} us")
         if "products" in case:
             done, least = case["products"]
             timing[name]["products"] = [done, least]
@@ -1436,7 +1552,13 @@ def main() -> int:
               f"(CUDA events); bound {b_ms * 1e3:.2f} us ({b_by}); max abs "
               f"err {err:.3g} (tol {tol_txt}); launches {case['launches']}; "
               f"{lib_txt}{cold_txt}")
-    record.update(kernels=kernels, shapes=shapes, timing=timing)
+    sweep = activation_layouts(dev, cfg.tau, (px, pu, kinds))
+    print("segment_activations forward by layout (device time per call, "
+          "hard): " + "; ".join(
+              f"{r['inputs']} {r['shape']}: tile {r['tile_ms'] * 1e3:.2f} us, "
+              f"warp {r['warp_ms'] * 1e3:.2f} us" for r in sweep))
+    record.update(kernels=kernels, shapes=shapes, timing=timing,
+                  activation_layouts=sweep)
     lap("kernels against plain")
     record["phase_s"] = phase_s
     print(f"phase seconds {phase_s}")

@@ -14,18 +14,23 @@
 //
 // What bounds it: bytes.  It reads the packed logits and uniforms and writes
 // the packed activations once each, 12 bytes per lane, against two logf, one
-// expf and a few flops per lane.  Design: one thread per (row, span), spans
-// fastest, so a warp works on one contiguous stretch of lanes.  The thread
-// walks its Wmax lanes in passes (scaled logits and their max, then exp and
-// sum, then y and its argmax, then the straight-through value) and keeps the
-// intermediate values in its own lanes of the output, which stay in L1/L2
-// between passes, so there is no cap on the span width and no logf is
-// evaluated twice.
+// expf and a few flops per lane.  The forward reads each lane once and
+// writes it once, neighbouring threads on neighbouring lanes, in one of two
+// layouts by Wmax (kTileMaxWidth below, chosen from the layouts' times on
+// the card).  Narrow spans (the CTGAN tables'): a block stages a tile of 32
+// rows x up to 8 spans in shared memory and a thread per cell walks its
+// lanes there, a warp per span, so that padded lanes are skipped by whole
+// warps.  Wider spans: a warp per (row, span) walks it in coalesced strides
+// of 32 lanes, the scaled logits and then their weights held in the warp's
+// own stage of shared memory between the passes.  No cap on the width: a
+// span wider than a block's shared memory recomputes the scaled logits in
+// each pass instead of staging them.
 //
 // Numerics: built with --fmad=false and no fast math: expf, logf and tanhf
-// are the IEEE-accurate versions (1/tau = 5 amplifies their error).  The sum
-// runs in lane order, so y can differ from the plain version's reduction
-// order by an ulp.  Ties go to the first lane (strict >), as jnp.argmax.
+// are the IEEE-accurate versions (1/tau = 5 amplifies their error).  Spans
+// are summed in lane order (a shuffle tree in the warp layout), so y can
+// differ from the plain version's reduction order by an ulp.  Ties go to
+// the first lane, as jnp.argmax.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -33,51 +38,183 @@ namespace {
 
 constexpr float kGumbelEps = 1e-20f;
 
-__global__ void segment_activations_kernel(const float* __restrict__ x,
-                                           const float* __restrict__ u,
-                                           const float* __restrict__ kinds,
-                                           float* __restrict__ out,
-                                           long long n, int s, int w,
-                                           float tau, int hard) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n * s) return;
-  const int span = (int)(idx % s);
-  const long long base = idx * w;                 // (N, S*W): lanes of (row, span)
+__device__ __forceinline__ float scaled_logit(float x, float u, float tau) {
+  const float g = -logf(-logf(u + kGumbelEps) + kGumbelEps);
+  return (x + g) / tau;
+}
+
+// The larger of two (value, lane) pairs, the lower lane on equal values:
+// the first maximum, as jnp.argmax.
+__device__ __forceinline__ void arg_better(float& v, int& i, float v2,
+                                           int i2) {
+  if (v2 > v || (v2 == v && i2 < i)) {
+    v = v2;
+    i = i2;
+  }
+}
+
+// The tile: a block stages 32 rows x `spans` spans of x and u in shared
+// memory with coalesced loads (each row's stretch of spans is contiguous),
+// each cell's lanes at an odd stride so that the walks below hit distinct
+// banks.  Warp w takes span s0 + w of the 32 rows, lane t row r0 + t, and
+// walks the cell's lanes in the stage: scaled logits and their max, exp and
+// the sum in lane order, y and its first maximum, the straight-through
+// value.  A warp's cells share their span, so the tanh / softmax choice and
+// the padded (-inf) lanes are the same on every lane: padded lanes skip the
+// logs and the exp (their scaled logit is -inf and their weight 0 exactly,
+// as computed).  The block writes the tile back with coalesced stores.
+// Spans a tile: up to 8, as many as kTileLanes stage columns hold.
+constexpr int kTileRows = 32, kTileMaxSpans = 8, kTileLanes = 8 * 33;
+
+__host__ __device__ inline int tile_spans(int w) {
+  const int k = kTileLanes / (w | 1);
+  return k < 1 ? 1 : k > kTileMaxSpans ? kTileMaxSpans : k;
+}
+
+__global__ void __launch_bounds__(kTileRows * kTileMaxSpans)
+segment_activations_tile(const float* __restrict__ x,
+                         const float* __restrict__ u,
+                         const float* __restrict__ kinds,
+                         float* __restrict__ out, long long n, int s, int w,
+                         float tau, int hard) {
+  extern __shared__ float stage[];
+  const int wp = w | 1, tspans = tile_spans(w);
+  float* sx = stage;
+  float* su = stage + kTileRows * tspans * wp;
+  const long long r0 = (long long)blockIdx.x * kTileRows;
+  const int s0 = blockIdx.y * tspans;
+  const int spans = min(tspans, s - s0);
+  const int rows = (int)min((long long)kTileRows, n - r0);
+  const int seg = spans * w;                      // a row's lanes in the tile
+  const float inv_w = 1.0f / (float)w, inv_seg = 1.0f / (float)seg;
+  // tile lane i is lane j = i % seg of row i / seg, lane j % w of span
+  // j / w; (i + 0.5) / seg stays at least 0.5 / seg from an integer, far
+  // above its rounding (and likewise for w)
+  auto stage_at = [&](int i, long long& g) {
+    const int r = (int)(((float)i + 0.5f) * inv_seg);
+    const int j = i - r * seg;
+    const int sp = (int)(((float)j + 0.5f) * inv_w);
+    g = ((r0 + r) * s + s0) * w + j;
+    return (sp * kTileRows + r) * wp + (j - sp * w);
+  };
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int i = tid; i < rows * seg; i += nt) {
+    long long g;
+    const int at = stage_at(i, g);
+    sx[at] = x[g];
+    su[at] = u[g];
+  }
+  __syncthreads();
+  const int sp = tid / kTileRows, r = tid % kTileRows;
+  if (sp < spans && r < rows) {
+    float* o = sx + (sp * kTileRows + r) * wp;
+    const float* us = su + (sp * kTileRows + r) * wp;
+    if (kinds[(s0 + sp) * w] > 0.5f) {            // kinds rows are uniform
+      for (int l = 0; l < w; ++l)
+        o[l] = o[l] == -INFINITY ? -1.0f : tanhf(o[l]);
+    } else {
+      float m = -INFINITY;
+      for (int l = 0; l < w; ++l) {
+        if (o[l] != -INFINITY) o[l] = scaled_logit(o[l], us[l], tau);
+        m = fmaxf(m, o[l]);
+      }
+      float sum = 0.0f;
+      for (int l = 0; l < w; ++l) {
+        o[l] = o[l] == -INFINITY ? 0.0f : expf(o[l] - m);
+        sum += o[l];
+      }
+      float best_v = -INFINITY;
+      int best = w;
+      for (int l = 0; l < w; ++l) {
+        o[l] /= sum;                              // y
+        arg_better(best_v, best, o[l], l);
+      }
+      if (hard)
+        for (int l = 0; l < w; ++l)
+          o[l] = ((l == best ? 1.0f : 0.0f) - o[l]) + o[l];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * seg; i += nt) {
+    long long g;
+    const int at = stage_at(i, g);
+    out[g] = sx[at];
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The warp per (row, span): lane t takes lanes t, t + 32, ... of the span.
+// kStaged: the warp's w floats of shared memory hold the scaled logits,
+// then their weights, so x and u are read once; otherwise (a span wider
+// than a block's shared memory) each pass recomputes the scaled logits.
+// Padded lanes skip the logs, as in the tile.
+template <bool kStaged>
+__global__ void __launch_bounds__(256)
+segment_activations_warp(const float* __restrict__ x,
+                         const float* __restrict__ u,
+                         const float* __restrict__ kinds,
+                         float* __restrict__ out, long long n, int s, int w,
+                         float tau, int hard) {
+  extern __shared__ float stage[];
+  const int warps = blockDim.x / 32;
+  const long long cell =
+      (long long)blockIdx.x * warps + threadIdx.x / 32;
+  const int t = threadIdx.x % 32;
+  if (cell >= n * s) return;                      // whole warps
+  const long long base = cell * w;
   const float* xs = x + base;
   const float* us = u + base;
   float* o = out + base;
-
-  if (kinds[span * w] > 0.5f) {                   // kinds rows are uniform
-    for (int l = 0; l < w; ++l) o[l] = tanhf(xs[l]);
+  if (kinds[(cell % s) * w] > 0.5f) {
+    for (int l = t; l < w; l += 32) o[l] = tanhf(xs[l]);
     return;
   }
+  float* z = stage + (long long)(threadIdx.x / 32) * w;
+  auto logit = [&](int l) {
+    const float xl = xs[l];
+    return xl == -INFINITY ? -INFINITY : scaled_logit(xl, us[l], tau);
+  };
   float m = -INFINITY;
-  for (int l = 0; l < w; ++l) {
-    const float g = -logf(-logf(us[l] + kGumbelEps) + kGumbelEps);
-    const float z = (xs[l] + g) / tau;
-    o[l] = z;
-    m = fmaxf(m, z);
+  for (int l = t; l < w; l += 32) {
+    const float zl = logit(l);
+    if (kStaged) z[l] = zl;
+    m = fmaxf(m, zl);
   }
+  m = warp_max(m);
   float sum = 0.0f;
-  for (int l = 0; l < w; ++l) {
-    const float e = expf(o[l] - m);
-    o[l] = e;
+  for (int l = t; l < w; l += 32) {
+    const float e = expf((kStaged ? z[l] : logit(l)) - m);
+    if (kStaged) z[l] = e;
     sum += e;
   }
-  int best = 0;
-  float best_v = 0.0f;
-  for (int l = 0; l < w; ++l) {
-    const float y = o[l] / sum;
-    o[l] = y;
-    if (l == 0 || y > best_v) {
-      best_v = y;
-      best = l;
+  sum = warp_sum(sum);
+  auto y_at = [&](int l) {
+    return (kStaged ? z[l] : expf(logit(l) - m)) / sum;
+  };
+  float best_v = -INFINITY;
+  int best = w;
+  if (hard) {
+    for (int l = t; l < w; l += 32) arg_better(best_v, best, y_at(l), l);
+    for (int off = 16; off > 0; off >>= 1) {
+      const float v2 = __shfl_xor_sync(0xffffffffu, best_v, off);
+      const int i2 = __shfl_xor_sync(0xffffffffu, best, off);
+      arg_better(best_v, best, v2, i2);
     }
   }
-  if (!hard) return;
-  for (int l = 0; l < w; ++l) {
-    const float y = o[l];
-    o[l] = ((l == best ? 1.0f : 0.0f) - y) + y;
+  for (int l = t; l < w; l += 32) {
+    const float y = y_at(l);
+    o[l] = hard ? ((l == best ? 1.0f : 0.0f) - y) + y : y;
   }
 }
 
@@ -90,9 +227,10 @@ __global__ void segment_activations_kernel(const float* __restrict__ x,
 // kinds take no gradient.
 //
 // What bounds it: bytes (x, u and ct read, the gradient written: 16 bytes a
-// lane), and at the training shape (500 rows) the launch itself.  The
-// layout and the lane passes are the forward's: one thread per (row,
-// span), intermediates kept in the thread's own lanes of the output.
+// lane), and at the training shape (500 rows) the launch itself.  One
+// thread per (row, span) walks its lanes in passes (scaled logits and
+// their max, exp and sum, y and the dot product, the gradient), keeping the
+// intermediate values in its own lanes of the output.
 __global__ void segment_activations_bwd_kernel(const float* __restrict__ x,
                                                const float* __restrict__ u,
                                                const float* __restrict__ kinds,
@@ -138,16 +276,64 @@ __global__ void segment_activations_bwd_kernel(const float* __restrict__ x,
   for (int l = 0; l < w; ++l) o[l] = o[l] * (cs[l] - dot) / tau;
 }
 
+// Up to kTileMaxWidth lanes the tile takes a span, wider spans the warp:
+// at 4,096 rows of softmax spans of W lanes (chip_smoke.py's layout sweep,
+// H100; PERF.md) the tile ran 0.19-0.93x the warp's time from W 8 to 44,
+// the warp 0.96x the tile's at W 48 and 0.56x at W 64.
+constexpr int kTileMaxWidth = 44;
+
+// Shared memory above the default 48 KB, where the kernel needs it.
+template <typename K>
+int allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 }  // namespace
 
+// layout 0 picks by Wmax (kTileMaxWidth); 1 forces the tile, 2 the staged
+// warp, 3 the warp that recomputes (for tests and the layout sweep).  A
+// forced layout whose stage does not fit returns cudaErrorInvalidValue.
 extern "C" int segment_activations_f32(const float* x, const float* u,
                                        const float* kinds, float* out,
                                        long long n, int s, int w, float tau,
-                                       int hard, void* stream) {
-  const int threads = 256;
+                                       int hard, int layout, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  int dev = 0, optin = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (cudaError_t e = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+    return (int)e;
+  const int tspans = tile_spans(w);
+  const size_t tile_smem = sizeof(float) * 2 * kTileRows * tspans * (w | 1);
+  const size_t lane_bytes = sizeof(float) * (size_t)w;   // a warp's stage
+  if (layout == 0)
+    layout = w <= kTileMaxWidth ? 1 : lane_bytes <= (size_t)optin ? 2 : 3;
+  if (layout == 1) {
+    if (tile_smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+    if (int e = allow_smem(segment_activations_tile, tile_smem)) return e;
+    const dim3 grid((unsigned)((n + kTileRows - 1) / kTileRows),
+                    (unsigned)((s + tspans - 1) / tspans));
+    segment_activations_tile<<<grid, kTileRows * tspans, tile_smem, st>>>(
+        x, u, kinds, out, n, s, w, tau, hard);
+    return (int)cudaGetLastError();
+  }
   const long long cells = n * s;
-  const unsigned blocks = (unsigned)((cells + threads - 1) / threads);
-  segment_activations_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  if (layout == 2) {
+    // 8 warps a block, fewer where their stages pass 48 KB
+    const size_t fit = 48 * 1024 / lane_bytes;
+    const int warps = fit < 1 ? 1 : fit > 8 ? 8 : (int)fit;
+    const size_t smem = warps * lane_bytes;
+    if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+    if (int e = allow_smem(segment_activations_warp<true>, smem)) return e;
+    segment_activations_warp<true>
+        <<<(unsigned)((cells + warps - 1) / warps), 32 * warps, smem, st>>>(
+            x, u, kinds, out, n, s, w, tau, hard);
+    return (int)cudaGetLastError();
+  }
+  if (layout != 3) return (int)cudaErrorInvalidValue;
+  segment_activations_warp<false><<<(unsigned)((cells + 7) / 8), 256, 0, st>>>(
       x, u, kinds, out, n, s, w, tau, hard);
   return (int)cudaGetLastError();
 }

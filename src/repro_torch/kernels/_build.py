@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("vgm_encode", "vgm_decode", "segment_activations",
            "weighted_agg", "flash_attention", "flash_attention_sm90",
-           "mlstm_chunk")
+           "mlstm_chunk_sm90")
 # --fmad=false: no contraction into fused multiply-adds, so each kernel
 # rounds like its plain version; no --use_fast_math: IEEE expf/logf/tanhf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,7 +45,9 @@ _LOCK = threading.Lock()
 
 
 def _target(stem: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes()
+    # the hash covers the shared headers too, which any source may include
+    parts = [CSRC / f"{stem}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{stem}-{digest}.so"
 
@@ -98,7 +100,8 @@ def build_log(stem: str) -> str:
     return path.read_text() if path.exists() else ""
 
 
-def kernel_function(stem: str, name: str, argtypes: list):
+def kernel_function(stem: str, name: str, argtypes: list,
+                    restype=ctypes.c_int):
     """The C function ``name`` of ``csrc/<stem>.cu``, building the
     libraries first if needed (looked up once, then cached)."""
     fn = _FNS.get((stem, name))
@@ -112,7 +115,7 @@ def kernel_function(stem: str, name: str, argtypes: list):
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         _LIBS[stem] = lib
     fn = getattr(lib, name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    fn.argtypes, fn.restype = argtypes, restype
     _FNS[(stem, name)] = fn
     return fn
 

@@ -91,17 +91,25 @@ def layout_tensors(layout: SpanLayout, device: torch.device) -> LayoutTensors:
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_float,
-                                     ctypes.c_int, ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+# the forward's layouts: "auto" picks by Wmax; the others force one (tests,
+# and the layout sweep of chip_smoke.py)
+FORWARD_LAYOUTS = {"auto": 0, "tile": 1, "warp": 2, "warp_unstaged": 3}
 
 
 def segment_activations_cuda(packed_x: torch.Tensor, packed_u: torch.Tensor,
                              kinds: torch.Tensor, tau: float,
-                             hard: bool = False) -> torch.Tensor:
+                             hard: bool = False, *,
+                             layout: str = "auto") -> torch.Tensor:
     """Launch the forward activation kernel on the current stream (no
     synchronize).  Records no autograd graph: raises on inputs that require
     grad rather than drop their gradient (:class:`SegmentActivations` is
     the differentiable route).  Each row of ``kinds`` must be uniform (all
-    1.0 or all 0.0), as :func:`build_span_layout` makes it."""
+    1.0 or all 0.0), as :func:`build_span_layout` makes it.  ``layout``
+    names one of :data:`FORWARD_LAYOUTS` (``csrc/segment_activations.cu``
+    describes them); a forced layout whose stage does not fit the card's
+    shared memory raises."""
     N = packed_x.shape[0]
     S, W = kinds.shape
     device = packed_x.device
@@ -115,7 +123,8 @@ def segment_activations_cuda(packed_x: torch.Tensor, packed_u: torch.Tensor,
                                 "segment_activations_f32", _ARGTYPES)
     _build.launch("segment_activations", "segment_activations", fn, device,
                   packed_x.data_ptr(), packed_u.data_ptr(), kinds.data_ptr(),
-                  out.data_ptr(), N, S, W, float(tau), int(bool(hard)))
+                  out.data_ptr(), N, S, W, float(tau), int(bool(hard)),
+                  FORWARD_LAYOUTS[layout])
     return out
 
 

@@ -93,12 +93,10 @@ def test_vgm_decode_table_matches_plain(cuda, N, Q, K, ks):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("layout", ["ctgan", "width1", "one_span"])
-@pytest.mark.parametrize("hard", [False, True])
-def test_segment_activations_matches_plain(cuda, layout, hard):
+def _check_activations(cuda, layout, hard, forced="auto"):
     px, pu, lay = activation_inputs(3, 4099, ACT_LAYOUTS[layout], 0.2)
     args = _on(cuda, (px, pu, lay.kinds))
-    out = segment_activations_cuda(*args, 0.2, hard)
+    out = segment_activations_cuda(*args, 0.2, hard, layout=forced)
     torch.cuda.synchronize()
     plain = tref.segment_activations_ref(*args, 0.2, hard)
     torch.testing.assert_close(out, plain, rtol=0, atol=2e-6)
@@ -106,6 +104,23 @@ def test_segment_activations_matches_plain(cuda, layout, hard):
         soft = ~lay.pack_pad & (np.repeat(lay.kinds[:, 0], lay.wmax) < 0.5)
         soft = torch.as_tensor(soft, device=cuda)
         assert torch.equal(out[:, soft].round(), plain[:, soft].round())
+
+
+@pytest.mark.parametrize("layout", ["ctgan", "width1", "one_span", "w24",
+                                    "w32", "mid", "wide"])
+@pytest.mark.parametrize("hard", [False, True])
+def test_segment_activations_matches_plain(cuda, layout, hard):
+    _check_activations(cuda, layout, hard)
+
+
+@pytest.mark.parametrize("layout", ["width1", "ctgan", "w32", "wide"])
+@pytest.mark.parametrize("forced", ["tile", "warp", "warp_unstaged"])
+def test_segment_activations_every_forward_layout_matches_plain(cuda, layout,
+                                                                forced):
+    """Each of the forward's layouts, whichever Wmax would route to it: the
+    tile, the warp with its stage, and the warp that recomputes (taken for
+    spans wider than a block's shared memory)."""
+    _check_activations(cuda, layout, True, forced)
 
 
 def test_segment_activations_refuses_grad(cuda):
@@ -309,6 +324,13 @@ MLSTM_CASES = [  # BH, S, hd, chunk, constant log_f
     (5, 256, 64, 256, None),      # one chunk, S == L
     (3, 36, 48, 12, None),        # L and hd not powers of two, BH odd
     (16, 2048, 1024, 256, None),  # the full-width prefill's shape
+    # the tensor-core kernel's tile edges: chunks padded to 64-row tiles,
+    # head dims padded to 64 columns or taking 64-column value tiles
+    (1, 300, 32, 100, None),      # L not a multiple of 64, BH = 1
+    (3, 260, 80, 130, None),      # hd 80 in a 128-column tile
+    (2, 384, 192, 192, None),     # hd 192: 64-column value tiles
+    (1, 768, 256, 256, None),     # BH = 1, two value tiles, three chunks
+    (2, 512, 64, 256, -30.0),     # strong decay at whole tiles
 ]
 
 

@@ -90,6 +90,10 @@ def test_vgm_decode_table_plain_matches_pallas_and_ref(N, Q, K, ks, block_n):
     (777, "ctgan", 256),                # N not a multiple of the block
     (33, "width1", 16),                 # spans of width 1
     (64, "one_span", 64),
+    (65, "w24", 64),                    # a span of 24 lanes
+    (97, "w32", 32),                    # a span of 32 lanes
+    (129, "mid", 128),                  # a span of 40 lanes
+    (257, "wide", 128),                 # a span of 300 lanes
 ])
 def test_segment_activations_plain_matches_pallas_and_ref(N, layout, block_n,
                                                           hard):

@@ -85,6 +85,14 @@ ACT_LAYOUTS = {
                      (10, "softmax"), (7, "softmax"), (2, "softmax")]),
     "width1": spans_of([(1, "softmax"), (1, "tanh"), (3, "softmax")]),
     "one_span": spans_of([(18, "softmax")]),
+    # the forward's tile at 24 and 32 lanes, where its stage passes the
+    # default 48 KB of shared memory
+    "w24": spans_of([(1, "tanh"), (24, "softmax"), (5, "softmax")]),
+    "w32": spans_of([(1, "tanh"), (32, "softmax"), (9, "softmax")]),
+    # Wmax past one warp's lanes: 40 (the forward's tile, up to 44 lanes)
+    # and 300 (its warp layout, ten strides of 32 lanes)
+    "mid": spans_of([(1, "tanh"), (40, "softmax"), (7, "softmax")]),
+    "wide": spans_of([(1, "tanh"), (300, "softmax"), (7, "softmax")]),
 }
 
 
