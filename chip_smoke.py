@@ -72,9 +72,13 @@ which stops the run with a non-zero exit on failure:
 14. each kernel at its main path's shapes against its plain PyTorch version
    on the card, with its time, the plain version's time, its bound and,
    where one PyTorch call computes the same function, that call's time;
-   for the flash kernels also the products done against the least; and
-   the flash kernels on a ragged and a sliding-window case against
-   autograd through the plain full-matrix attention.
+   for the flash kernels also the products done against the least; the
+   flash kernels on a ragged and a sliding-window case against autograd
+   through the plain full-matrix attention; the activations forward in
+   each of its layouts over span widths; and the layout line: the
+   activation backward in each layout timed at the training shape and at
+   500 to 4,099 rows over span widths, and the table decode at each rung
+   of the serving ladder, each against its plain version.
 
 Phases 3-5 are the serving main path, phase 6 the CTGAN training main
 path, phase 10 the LM main path, phase 11 the path of the single-column
@@ -123,6 +127,13 @@ SM90_KERNELS = {"flash_attention_fwd": "flash_fwd_sm90",
 MLSTM_TC_KERNELS = ("mlstm_mainILi128E", "mlstm_mainILi64E", "mlstm_scores")
 # widths of the activations forward's layout sweep
 ACT_SWEEP_WIDTHS = (8, 16, 19, 24, 32, 40, 44, 48, 64, 128, 300)
+# the activation backward's layout line: rows (the training batch and more)
+# and span widths, about 342 lanes a row as in the training layout (9 and
+# 17, just past a power of two, idle most of a group's threads); and the
+# layouts it times (they differ past 32 lanes)
+BWD_SWEEP_ROWS = (500, 4099)
+BWD_SWEEP_WIDTHS = (8, 9, 17, 18, 32, 64, 300)
+BWD_SWEEP_LAYOUTS = ("groups", "groups_unstaged")
 # the four grids of one mlstm_chunk_sm90 call, and nothing else in its trace
 MLSTM_GRIDS = ("mlstm_gates", "mlstm_prep", "mlstm_scores", "mlstm_main")
 # bf16 products the mLSTM kernel does for each product of its least work
@@ -234,6 +245,18 @@ def device_busy(fn, repeats: int = 1, top: int = 8) -> tuple[float, list]:
                                        for name, (ns, n) in ranked]
 
 
+def traced_launch_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean duration of one launch of the kernel named ``kernel`` over
+    ``reps`` calls of ``fn`` in a CUDA-only trace (:func:`device_busy`):
+    its own time on the card, without the gaps between launches that
+    :func:`kernel_ms` counts."""
+    _, grids = device_busy(lambda: [fn() for _ in range(reps)], top=1000)
+    hits = [(ms, n) for g, ms, n in grids if kernel in g]
+    launches = sum(n for _, n in hits)
+    check(launches > 0, f"traced_launch_ms: no {kernel} in the trace")
+    return sum(ms for ms, _ in hits) / launches
+
+
 def cold_ms(fn) -> float:
     """Device time per call (:func:`kernel_ms`) when every call follows a
     128 MB write that evicts the 50 MB L2 cache, so that its inputs come
@@ -338,6 +361,73 @@ def activation_layouts(dev, tau, serving) -> list:
                                                  layout=layout))
         rows.append(row)
     return rows
+
+
+def backward_and_decode_layouts(dev, tau, training, decode,
+                                 rungs) -> dict:
+    """Device time per call of the activation backward in each layout of
+    ``BWD_SWEEP_LAYOUTS``, each held against the plain version (atol
+    3e-5), at the training shape (``training``: packed x, u, kinds and ct)
+    and at ``BWD_SWEEP_ROWS`` rows of softmax spans of each width of
+    ``BWD_SWEEP_WIDTHS``; and of the table decode and its plain version at
+    each rung of the serving ladder (the first ``rungs`` rows of
+    ``decode``'s slots), held to it exactly; and an empty kernel's
+    (``torch.cuda._sleep(0)``), the floor of any one launch.  The training
+    shape's backward and every decode rung also give their kernel's own
+    duration per launch in a trace (``trace_ms``)."""
+    import torch
+    from repro_torch.kernels.ref import (segment_activations_bwd_ref,
+                                         vgm_decode_table_ref)
+    from repro_torch.kernels.segment_activations import (
+        segment_activations_bwd_cuda)
+    from repro_torch.kernels.vgm_decode import vgm_decode_table_cuda
+    g = torch.Generator(dev).manual_seed(29)
+    inputs = [("training", *training)]
+    for n in BWD_SWEEP_ROWS:
+        for w in BWD_SWEEP_WIDTHS:
+            s = max(1, 342 // w)
+            x = 2.0 * torch.randn((n, s * w), device=dev, generator=g)
+            u = 0.01 + 0.98 * torch.rand((n, s * w), device=dev, generator=g)
+            ct = torch.rand((n, s * w), device=dev, generator=g) * 2 - 1
+            inputs.append((f"W {w}", x, u, torch.zeros((s, w), device=dev),
+                           ct))
+    backward = []
+    for what, x, u, kinds, ct in inputs:
+        want = segment_activations_bwd_ref(x, u, kinds, ct, tau)
+        row = {"inputs": what, "shape": [x.shape[0], *kinds.shape]}
+        for layout in BWD_SWEEP_LAYOUTS:
+            got = segment_activations_bwd_cuda(x, u, kinds, ct, tau,
+                                               layout=layout)
+            err = float((got - want).abs().max())
+            check(err <= 3e-5, f"segment_activations_bwd {layout} layout at "
+                  f"{what} {row['shape']}: max abs error {err:.3g}, "
+                  "tolerance 3e-5")
+            row[f"{layout}_ms"] = kernel_ms(
+                lambda: segment_activations_bwd_cuda(x, u, kinds, ct, tau,
+                                                     layout=layout))
+            row[f"{layout}_err"] = err
+        row["plain_ms"] = kernel_ms(
+            lambda: segment_activations_bwd_ref(x, u, kinds, ct, tau))
+        if what == "training":
+            row["trace_ms"] = traced_launch_ms(
+                lambda: segment_activations_bwd_cuda(x, u, kinds, ct, tau),
+                "segment_activations_bwd")
+        backward.append(row)
+    slots, means, stds = decode
+    # the floor of a launch: an empty kernel's device time, measured alike
+    empty_ms = kernel_ms(lambda: torch.cuda._sleep(0))
+    rows = []
+    for n in rungs:
+        args = (slots[:n], means, stds)
+        got, want = vgm_decode_table_cuda(*args), vgm_decode_table_ref(*args)
+        check(torch.equal(got, want), f"vgm_decode_table at {n} rows: not "
+              "equal to the plain version")
+        rows.append({"rows": n, "ms": kernel_ms(
+            lambda: vgm_decode_table_cuda(*args)),
+            "trace_ms": traced_launch_ms(
+                lambda: vgm_decode_table_cuda(*args), "vgm_decode_table"),
+            "plain_ms": kernel_ms(lambda: vgm_decode_table_ref(*args))})
+    return {"backward": backward, "decode": rows, "empty_kernel_ms": empty_ms}
 
 
 def same_params(states) -> bool:
@@ -1557,8 +1647,26 @@ def main() -> int:
           "hard): " + "; ".join(
               f"{r['inputs']} {r['shape']}: tile {r['tile_ms'] * 1e3:.2f} us, "
               f"warp {r['warp_ms'] * 1e3:.2f} us" for r in sweep))
+    bd = backward_and_decode_layouts(
+        dev, cfg.tau, (tpx, tpu, tkinds, tct), dec_args,
+        ladder_from_sizes(SIZES).buckets)
+    print("segment_activations backward by layout (device time per call; "
+          "plain beside): " + "; ".join(
+              f"{r['inputs']} {r['shape']}: " + ", ".join(
+                  f"{lay} {r[lay + '_ms'] * 1e3:.2f} us"
+                  for lay in BWD_SWEEP_LAYOUTS)
+              + f", plain {r['plain_ms'] * 1e3:.2f} us"
+              + (f", traced launch {r['trace_ms'] * 1e3:.2f} us"
+                 if "trace_ms" in r else "")
+              for r in bd["backward"]))
+    print("vgm_decode_table by serving rung (device time per call; its "
+          "traced launch): "
+          + "; ".join(f"{r['rows']} rows: {r['ms'] * 1e3:.2f} us, traced "
+                      f"{r['trace_ms'] * 1e3:.2f} us, plain "
+                      f"{r['plain_ms'] * 1e3:.2f} us" for r in bd["decode"])
+          + f"; an empty kernel {bd['empty_kernel_ms'] * 1e3:.2f} us")
     record.update(kernels=kernels, shapes=shapes, timing=timing,
-                  activation_layouts=sweep)
+                  activation_layouts=sweep, backward_decode_layouts=bd)
     lap("kernels against plain")
     record["phase_s"] = phase_s
     print(f"phase seconds {phase_s}")

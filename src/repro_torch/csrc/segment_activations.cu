@@ -28,9 +28,9 @@
 //
 // Numerics: built with --fmad=false and no fast math: expf, logf and tanhf
 // are the IEEE-accurate versions (1/tau = 5 amplifies their error).  Spans
-// are summed in lane order (a shuffle tree in the warp layout), so y can
-// differ from the plain version's reduction order by an ulp.  Ties go to
-// the first lane, as jnp.argmax.
+// are summed in lane order (a shuffle tree in the warp layout and in the
+// backward's groups), so y can differ from the plain version's reduction
+// order by an ulp.  Ties go to the first lane, as jnp.argmax.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -223,57 +223,135 @@ segment_activations_warp(const float* __restrict__ x,
 // recompute the soft sample y from x and u (in hard mode the forward's
 // output is the one-hot, so it cannot be reused) and give
 // y * (ct - sum_lanes(ct * y)) / tau; hard mode passes this soft gradient
-// (straight-through).  Padded lanes (x = -inf) get y = 0, so 0.  u and
-// kinds take no gradient.
+// (straight-through).  Padded lanes (x = -inf) give exactly 0.  u and kinds
+// take no gradient.
 //
 // What bounds it: bytes (x, u and ct read, the gradient written: 16 bytes a
-// lane), and at the training shape (500 rows) the launch itself.  One
-// thread per (row, span) walks its lanes in passes (scaled logits and
-// their max, exp and sum, y and the dot product, the gradient), keeping the
-// intermediate values in its own lanes of the output.
-__global__ void segment_activations_bwd_kernel(const float* __restrict__ x,
-                                               const float* __restrict__ u,
-                                               const float* __restrict__ kinds,
-                                               const float* __restrict__ ct,
-                                               float* __restrict__ gx,
-                                               long long n, int s, int w,
-                                               float tau) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n * s) return;
-  const int span = (int)(idx % s);
-  const long long base = idx * w;
+// lane); at the training shape (500 rows x 19 spans x 18 lanes, 2.7 MB) the
+// launch and one wave of blocks, and at thousands of rows issuing the two
+// IEEE logf, an expf and three divisions a lane.  Two layouts, chosen by
+// Wmax: the groups up to 32 lanes, a warp per span past them.  A group of
+// G threads (G the least power of two >= Wmax, at most 32) takes one (row,
+// span), a thread per lane, so a warp holds 32 / G neighbouring cells and
+// its loads of x, u and ct are coalesced and made once.  Each lane's values stay in registers;
+// the span's max, its sum of exponentials and the dot with ct are
+// __shfl_xor_sync trees within the group; the gradient is written once.
+// Padded lanes skip the logs and the exp.  All 32 threads of a warp run
+// every shuffle (no early return, no divergent branch around one), so a
+// group of tanh lanes or past the last cell shuffles neutral values.
+template <int G>
+__global__ void __launch_bounds__(256)
+segment_activations_bwd_groups(const float* __restrict__ x,
+                               const float* __restrict__ u,
+                               const float* __restrict__ kinds,
+                               const float* __restrict__ ct,
+                               float* __restrict__ gx, long long cells,
+                               int s, int w, float tau) {
+  const long long cell = (long long)blockIdx.x * (256 / G) + threadIdx.x / G;
+  const int t = threadIdx.x % G;
+  const bool in = cell < cells, live = in && t < w;
+  const long long i = cell * w + t;
+  const float xv = live ? x[i] : -INFINITY;
+  const float uv = live ? u[i] : 0.5f;
+  const float cv = live ? ct[i] : 0.0f;
+  const int span = cells <= 0x7fffffff ? (int)cell % s  // 32-bit rem
+                                       : (int)(cell % s);
+  const bool tanh_span = in && kinds[span * w] > 0.5f;
+  const bool soft = !tanh_span && xv != -INFINITY;   // a real softmax lane
+  const float z = soft ? scaled_logit(xv, uv, tau) : -INFINITY;
+  float m = z;
+  for (int off = G / 2; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const float e = soft ? expf(z - m) : 0.0f;
+  float sum = e;
+  for (int off = G / 2; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  const float y = soft ? e / sum : 0.0f;
+  float dot = cv * y;
+  for (int off = G / 2; off > 0; off >>= 1)
+    dot += __shfl_xor_sync(0xffffffffu, dot, off);
+  if (!live) return;
+  float g = 0.0f;
+  if (soft) {
+    g = y * (cv - dot) / tau;
+  } else if (tanh_span && xv != -INFINITY) {
+    const float th = tanhf(xv);
+    g = cv * (1.0f - th * th);
+  }
+  gx[i] = g;
+}
+
+// Spans wider than 32 lanes: a warp per (row, span), lane t taking lanes t,
+// t + 32, ... of the span; each thread sums its lanes in order, then the
+// warp's shuffle tree.  kStaged: the warp's 2 * Wmax floats of shared memory
+// hold the scaled logits, then their exponentials, then y, and ct, so that
+// x, u and ct are read once (each thread reads back only the lanes it
+// wrote); otherwise (a span wider than a block's shared memory) each pass
+// recomputes the scaled logits and ct is read twice.
+template <bool kStaged>
+__global__ void __launch_bounds__(256)
+segment_activations_bwd_warp(const float* __restrict__ x,
+                             const float* __restrict__ u,
+                             const float* __restrict__ kinds,
+                             const float* __restrict__ ct,
+                             float* __restrict__ gx, long long cells, int s,
+                             int w, float tau) {
+  extern __shared__ float stage[];
+  const int warps = blockDim.x / 32;
+  const long long cell = (long long)blockIdx.x * warps + threadIdx.x / 32;
+  const int t = threadIdx.x % 32;
+  if (cell >= cells) return;                      // whole warps
+  const long long base = cell * w;
   const float* xs = x + base;
   const float* us = u + base;
   const float* cs = ct + base;
   float* o = gx + base;
-
-  if (kinds[span * w] > 0.5f) {
-    for (int l = 0; l < w; ++l) {
-      const float t = tanhf(xs[l]);
-      o[l] = cs[l] * (1.0f - t * t);
+  if (kinds[(int)(cell % s) * w] > 0.5f) {
+    for (int l = t; l < w; l += 32) {
+      const float xl = xs[l];
+      const float th = tanhf(xl);
+      o[l] = xl == -INFINITY ? 0.0f : cs[l] * (1.0f - th * th);
     }
     return;
   }
+  float* zs = stage + (long long)(threadIdx.x / 32) * 2 * w;
+  float* cst = zs + w;
+  auto logit = [&](int l) {
+    const float xl = xs[l];
+    return xl == -INFINITY ? -INFINITY : scaled_logit(xl, us[l], tau);
+  };
   float m = -INFINITY;
-  for (int l = 0; l < w; ++l) {
-    const float g = -logf(-logf(us[l] + kGumbelEps) + kGumbelEps);
-    const float z = (xs[l] + g) / tau;
-    o[l] = z;
-    m = fmaxf(m, z);
+  for (int l = t; l < w; l += 32) {
+    const float zl = logit(l);
+    if (kStaged) zs[l] = zl;
+    m = fmaxf(m, zl);
   }
+  m = warp_max(m);
+  auto exp_at = [&](float zl) {
+    return zl == -INFINITY ? 0.0f : expf(zl - m);
+  };
   float sum = 0.0f;
-  for (int l = 0; l < w; ++l) {
-    const float e = expf(o[l] - m);
-    o[l] = e;
+  for (int l = t; l < w; l += 32) {
+    const float e = exp_at(kStaged ? zs[l] : logit(l));
+    if (kStaged) zs[l] = e;
     sum += e;
   }
+  sum = warp_sum(sum);
   float dot = 0.0f;
-  for (int l = 0; l < w; ++l) {
-    const float y = o[l] / sum;
-    o[l] = y;
-    dot += cs[l] * y;
+  for (int l = t; l < w; l += 32) {
+    const float y = (kStaged ? zs[l] : exp_at(logit(l))) / sum;
+    const float c = cs[l];
+    if (kStaged) {
+      zs[l] = y;
+      cst[l] = c;
+    }
+    dot += c * y;
   }
-  for (int l = 0; l < w; ++l) o[l] = o[l] * (cs[l] - dot) / tau;
+  dot = warp_sum(dot);
+  for (int l = t; l < w; l += 32) {
+    const float y = kStaged ? zs[l] : exp_at(logit(l)) / sum;
+    o[l] = y == 0.0f ? 0.0f : y * ((kStaged ? cst[l] : cs[l]) - dot) / tau;
+  }
 }
 
 // Up to kTileMaxWidth lanes the tile takes a span, wider spans the warp:
@@ -338,18 +416,70 @@ extern "C" int segment_activations_f32(const float* x, const float* u,
   return (int)cudaGetLastError();
 }
 
+// Up to 32 lanes the groups take a span, wider spans the warp: layout 0
+// and 1 the staged warp (layout 0 the warp that recomputes where the stage
+// does not fit), 2 the warp that recomputes (for tests and the layout
+// line).  A forced layout whose stage does not fit returns
+// cudaErrorInvalidValue.
+extern "C" int segment_activations_bwd_layout_f32(
+    const float* x, const float* u, const float* kinds, const float* ct,
+    float* gx, long long n, int s, int w, float tau, int layout,
+    void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  int dev = 0, optin = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (cudaError_t e = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+    return (int)e;
+  const long long cells = n * s;
+  const size_t lane_bytes = 2 * sizeof(float) * (size_t)w;  // a warp's stage
+  if (layout == 0) layout = lane_bytes <= (size_t)optin ? 1 : 2;
+  if (layout != 1 && layout != 2) return (int)cudaErrorInvalidValue;
+  if (w <= 32) {
+    const int g = w <= 1 ? 1 : 1 << (32 - __builtin_clz(w - 1));
+    const unsigned blocks = (unsigned)((cells * g + 255) / 256);
+    switch (g) {
+      case 1: segment_activations_bwd_groups<1><<<blocks, 256, 0, st>>>(
+                  x, u, kinds, ct, gx, cells, s, w, tau); break;
+      case 2: segment_activations_bwd_groups<2><<<blocks, 256, 0, st>>>(
+                  x, u, kinds, ct, gx, cells, s, w, tau); break;
+      case 4: segment_activations_bwd_groups<4><<<blocks, 256, 0, st>>>(
+                  x, u, kinds, ct, gx, cells, s, w, tau); break;
+      case 8: segment_activations_bwd_groups<8><<<blocks, 256, 0, st>>>(
+                  x, u, kinds, ct, gx, cells, s, w, tau); break;
+      case 16: segment_activations_bwd_groups<16><<<blocks, 256, 0, st>>>(
+                   x, u, kinds, ct, gx, cells, s, w, tau); break;
+      default: segment_activations_bwd_groups<32><<<blocks, 256, 0, st>>>(
+                   x, u, kinds, ct, gx, cells, s, w, tau);
+    }
+    return (int)cudaGetLastError();
+  }
+  if (layout == 1) {
+    // 8 warps a block, fewer where their stages pass 48 KB
+    const size_t fit = 48 * 1024 / lane_bytes;
+    const int warps = fit < 1 ? 1 : fit > 8 ? 8 : (int)fit;
+    const size_t smem = warps * lane_bytes;
+    if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+    if (int e = allow_smem(segment_activations_bwd_warp<true>, smem))
+      return e;
+    segment_activations_bwd_warp<true>
+        <<<(unsigned)((cells + warps - 1) / warps), 32 * warps, smem, st>>>(
+            x, u, kinds, ct, gx, cells, s, w, tau);
+    return (int)cudaGetLastError();
+  }
+  segment_activations_bwd_warp<false>
+      <<<(unsigned)((cells + 7) / 8), 256, 0, st>>>(x, u, kinds, ct, gx,
+                                                    cells, s, w, tau);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int segment_activations_bwd_f32(const float* x, const float* u,
                                            const float* kinds,
                                            const float* ct, float* gx,
                                            long long n, int s, int w,
                                            float tau, void* stream) {
-  const int threads = 256;
-  const long long cells = n * s;
-  const unsigned blocks = (unsigned)((cells + threads - 1) / threads);
-  segment_activations_bwd_kernel<<<blocks, threads, 0,
-                                   (cudaStream_t)stream>>>(
-      x, u, kinds, ct, gx, n, s, w, tau);
-  return (int)cudaGetLastError();
+  return segment_activations_bwd_layout_f32(x, u, kinds, ct, gx, n, s, w,
+                                            tau, 0, stream);
 }
 
 extern "C" const char* segment_activations_error_string(int err) {

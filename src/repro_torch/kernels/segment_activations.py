@@ -131,15 +131,21 @@ def segment_activations_cuda(packed_x: torch.Tensor, packed_u: torch.Tensor,
 _BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_float,
                                          ctypes.c_void_p]
+# the backward's layouts past 32 lanes ("auto" stages where it fits, and
+# up to 32 lanes all take the groups): forced in tests and in the layout
+# line of chip_smoke.py
+BACKWARD_LAYOUTS = {"auto": 0, "groups": 1, "groups_unstaged": 2}
 
 
 def segment_activations_bwd_cuda(packed_x: torch.Tensor,
                                  packed_u: torch.Tensor, kinds: torch.Tensor,
-                                 ct: torch.Tensor, tau: float) -> torch.Tensor:
+                                 ct: torch.Tensor, tau: float, *,
+                                 layout: str = "auto") -> torch.Tensor:
     """Launch the backward kernel on the current stream (no synchronize):
     the gradient w.r.t. ``packed_x`` for the upstream gradient ``ct``, the
     soft sample's in hard mode too (straight-through), so it takes no
-    ``hard``."""
+    ``hard``.  ``layout`` names one of :data:`BACKWARD_LAYOUTS`
+    (``csrc/segment_activations.cu`` describes them)."""
     N = packed_x.shape[0]
     S, W = kinds.shape
     device = packed_x.device
@@ -150,12 +156,19 @@ def segment_activations_bwd_cuda(packed_x: torch.Tensor,
     grad = torch.empty((N, S * W), dtype=torch.float32, device=device)
     if N * S * W == 0:
         return grad
-    fn = _build.kernel_function("segment_activations",
-                                "segment_activations_bwd_f32", _BWD_ARGTYPES)
+    args = (packed_x.data_ptr(), packed_u.data_ptr(), kinds.data_ptr(),
+            ct.data_ptr(), grad.data_ptr(), N, S, W, float(tau))
+    if layout == "auto":
+        fn = _build.kernel_function("segment_activations",
+                                    "segment_activations_bwd_f32",
+                                    _BWD_ARGTYPES)
+    else:
+        fn = _build.kernel_function(
+            "segment_activations", "segment_activations_bwd_layout_f32",
+            _BWD_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p])
+        args += (BACKWARD_LAYOUTS[layout],)
     _build.launch("segment_activations_bwd", "segment_activations", fn,
-                  device, packed_x.data_ptr(), packed_u.data_ptr(),
-                  kinds.data_ptr(), ct.data_ptr(), grad.data_ptr(), N, S, W,
-                  float(tau))
+                  device, *args)
     return grad
 
 

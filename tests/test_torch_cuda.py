@@ -10,12 +10,17 @@ Encode and decode run the plain versions' own float32 operations in the
 same order with no fused multiply-add, so they must agree exactly.  The
 activation kernel sums each span's exponentials in lane order, PyTorch in
 its own reduction order: atol 2e-6 on values in [-1, 1], and the hard
-one-hots must be equal.  Its backward, for upstream gradients in [-1, 1]:
-atol 3e-5, since ``y * (ct - sum(ct * y)) / tau`` multiplies the soft
-sample's 2e-6 by up to |ct - dot| / tau = 10.  The merge kernel sums the
-same products in client order; the plain version's normalizing sum of the
-weights may round an ulp apart: rtol 1e-6, atol 1e-7, and an all-zero
-edge gives exact +0.0.  The single-column encode equals its plain version
+one-hots must be equal.  Its backward sums each span's exponentials and
+``ct * y`` as a ``__shfl_xor_sync`` tree over the threads of a group (each
+thread first folding its lanes in order past 32 lanes), autograd in
+PyTorch's order, so y differs by an ulp or two, as the forward's does: for
+upstream gradients in [-1, 1], atol 3e-5, since
+``y * (ct - sum(ct * y)) / tau`` multiplies the soft sample's 2e-6 by up
+to |ct - dot| / tau = 10; padded lanes give exactly 0.  The decode is held
+to its plain version exactly at every 4-byte offset of the slots' base
+from a 16-byte boundary.  The merge kernel sums the same products in client order; the plain version's
+normalizing sum of the weights may round an ulp apart: rtol 1e-6, atol
+1e-7, and an all-zero edge gives exact +0.0.  The single-column encode equals its plain version
 exactly, as the table encode does.
 
 The flash-attention kernels sum their products in tile order (float32
@@ -46,14 +51,14 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_dkv_cuda, flash_dq_cuda, flash_fwd_cuda)
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk_cuda  # noqa: E402
 from repro_torch.kernels.segment_activations import (  # noqa: E402
-    segment_activations_bwd_cuda, segment_activations_cuda)
+    BACKWARD_LAYOUTS, segment_activations_bwd_cuda, segment_activations_cuda)
 from repro_torch.kernels.vgm_decode import vgm_decode_table_cuda  # noqa: E402
 from repro_torch.kernels.vgm_encode import (  # noqa: E402
     vgm_encode_cuda, vgm_encode_table_cuda)
 from repro_torch.kernels.weighted_agg import weighted_agg_cuda  # noqa: E402
-from torch_kernel_inputs import (ACT_LAYOUTS, FLASH_CASES,  # noqa: E402
-                                 activation_inputs, as_tensors, decode_inputs,
-                                 encode_inputs, mlstm_inputs)
+from torch_kernel_inputs import (ACT_LAYOUTS, DECODE_CASES,  # noqa: E402
+                                 FLASH_CASES, activation_inputs, as_tensors,
+                                 decode_inputs, encode_inputs, mlstm_inputs)
 
 
 @pytest.fixture
@@ -81,15 +86,23 @@ def test_vgm_encode_table_matches_plain(cuda, N, Q, K, ks):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("N,Q,K,ks", [(4099, 5, 10, [10, 10, 7, 3, 10]),
-                                      (3, 1, 1, [1])])
-def test_vgm_decode_table_matches_plain(cuda, N, Q, K, ks):
-    inputs = _on(cuda, decode_inputs(2, N, Q, K, ks))
+@pytest.mark.parametrize("N,Q,K,ks", DECODE_CASES)
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_vgm_decode_table_matches_plain(cuda, N, Q, K, ks, shift):
+    """Exactly the plain version, with the slots at an aligned base and in
+    a view ``shift`` floats past it, not 16-byte aligned."""
+    slots, means, stds = _on(cuda, decode_inputs(2, N, Q, K, ks))
+    if shift:
+        big = torch.zeros(slots.numel() + shift, device=cuda)
+        big[shift:] = slots.reshape(-1)
+        slots = big[shift:].view(slots.shape)
+        assert slots.data_ptr() % 16 != 0
     before = _build.DISPATCH_COUNTS["vgm_decode_table"]
-    out = ops.vgm_decode_table(*inputs)
+    out = ops.vgm_decode_table(slots, means, stds)
     torch.cuda.synchronize()
     assert _build.DISPATCH_COUNTS["vgm_decode_table"] == before + 1
-    torch.testing.assert_close(out, tref.vgm_decode_table_ref(*inputs),
+    torch.testing.assert_close(out, tref.vgm_decode_table_ref(slots, means,
+                                                              stds),
                                rtol=0, atol=0)
 
 
@@ -139,15 +152,20 @@ def test_wrappers_check_shapes(cuda):
         vgm_decode_table_cuda(slots.double(), m, s)
 
 
-@pytest.mark.parametrize("layout", ["ctgan", "width1", "one_span"])
+@pytest.mark.parametrize("layout", sorted(ACT_LAYOUTS))
 @pytest.mark.parametrize("hard", [False, True])
-def test_segment_activations_bwd_matches_plain(cuda, layout, hard):
-    px, pu, lay = activation_inputs(6, 4099, ACT_LAYOUTS[layout], 0.2)
+@pytest.mark.parametrize("rows", [500, 4099])
+@pytest.mark.parametrize("forced", sorted(BACKWARD_LAYOUTS))
+def test_segment_activations_bwd_matches_plain(cuda, layout, hard, rows,
+                                               forced):
+    """Every layout of the card tests, at the training batch and at 4,099
+    rows, in each of the backward's layouts; padded lanes give 0."""
+    px, pu, lay = activation_inputs(6, rows, ACT_LAYOUTS[layout], 0.2)
     x, u, kinds = _on(cuda, (px, pu, lay.kinds))
     ct = torch.rand(x.shape, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(6)) * 2 - 1
     before = _build.DISPATCH_COUNTS["segment_activations_bwd"]
-    grad = segment_activations_bwd_cuda(x, u, kinds, ct, 0.2)
+    grad = segment_activations_bwd_cuda(x, u, kinds, ct, 0.2, layout=forced)
     torch.cuda.synchronize()
     assert _build.DISPATCH_COUNTS["segment_activations_bwd"] == before + 1
     plain = tref.segment_activations_bwd_ref(x, u, kinds, ct, 0.2, hard)

@@ -1,5 +1,6 @@
 """Seeded numpy inputs for the port's kernel tests, kept away from argmax
-ties so that every discrete output must match exactly."""
+ties so that every discrete output must match exactly (``decode_inputs``
+makes mode ties on request)."""
 import numpy as np
 import torch
 
@@ -35,12 +36,29 @@ def as_tensors(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-def decode_inputs(seed, N, Q, K, ks):
+# (N, Q, Kmax, live modes per column) of the table decode's card tests
+DECODE_CASES = [
+    (4099, 5, 10, [10, 10, 7, 3, 10]),   # N not a multiple of a block
+    (3, 1, 1, [1]),
+    (4096, 22, 10, [10] * 22),           # the serving shape
+    (1, 1, 1, [1]),                      # N 1, Kmax 1
+    (1001, 22, 10, [10, 9, 3] * 7 + [1]),
+    (777, 7, 3, [3, 2, 1, 3, 3, 1, 2]),  # an even slot width, 1 + Kmax
+    (64, 30, 60, [60, 31] * 15),         # wide slots
+    (5, 1, 1500, [1500]),                # one very wide slot
+]
+
+
+def decode_inputs(seed, N, Q, K, ks, ties=False):
+    """Slots for ``ks[q]`` live modes per column; ``ties``: the betas are
+    whole multiples of 0.5, so modes tie and the first maximum must win."""
     rng = np.random.default_rng(seed)
     live = np.arange(K)[None, :] < np.asarray(ks)[:, None]
     means = np.where(live, rng.normal(size=(Q, K)) * 10.0, 0.0)
     stds = np.where(live, 0.5 + rng.random((Q, K)) * 4.0, 1.0)
     slots = rng.normal(size=(N, Q, 1 + K))
+    if ties:
+        slots[:, :, 1:] = np.round(slots[:, :, 1:] * 2.0) / 2.0
     slots[:, :, 0] *= 1.5                     # some alphas outside [-1, 1]
     slots[:, :, 1:] = np.where(live[None], slots[:, :, 1:], NEG_INF)
     f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
