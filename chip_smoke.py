@@ -78,7 +78,11 @@ which stops the run with a non-zero exit on failure:
    each of its layouts over span widths; and the layout line: the
    activation backward in each layout timed at the training shape and at
    500 to 4,099 rows over span widths, and the table decode at each rung
-   of the serving ladder, each against its plain version.
+   of the serving ladder, each against its plain version; and the encode's
+   shape line: the table encode at (40,000, 22), (40,000, 5), (8,000, 5)
+   and (128, 22) and the column encode at 40,000 and 8,000 rows, Kmax 10,
+   each equal to its plain version, with its device time, its traced
+   launch, the plain version's time and its bound.
 
 Phases 3-5 are the serving main path, phase 6 the CTGAN training main
 path, phase 10 the LM main path, phase 11 the path of the single-column
@@ -87,9 +91,16 @@ are set to 0 just before each and read just after, every kernel of the
 path must have launched, and no plain-version counter may move.  The last two lines of output are the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; a longer
 record goes to ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --encode-shapes [--tree DIR]
+
+runs phases 1-2 and the encode's shape line alone, for the ``repro_torch``
+of the checkout at ``DIR`` (default: this one): run in turns on two
+checkouts in one call, it compares their encode kernels on one card.
 """
 from __future__ import annotations
 
+import argparse
 import copy
 import dataclasses
 import json
@@ -134,6 +145,12 @@ ACT_SWEEP_WIDTHS = (8, 16, 19, 24, 32, 40, 44, 48, 64, 128, 300)
 BWD_SWEEP_ROWS = (500, 4099)
 BWD_SWEEP_WIDTHS = (8, 9, 17, 18, 32, 64, 300)
 BWD_SWEEP_LAYOUTS = ("groups", "groups_unstaged")
+# the encode's shape line, Kmax 10: (rows, columns) of the table entry
+# (intrusion and adult at the paper's 40,000 rows, one training client of
+# adult, a table of one serving rung) and the rows of the column entry
+ENCODE_TABLE_SHAPES = ((40_000, 22), (40_000, 5), (8000, 5), (128, 22))
+ENCODE_COLUMN_ROWS = (40_000, 8000)
+ENCODE_KMAX = 10
 # the four grids of one mlstm_chunk_sm90 call, and nothing else in its trace
 MLSTM_GRIDS = ("mlstm_gates", "mlstm_prep", "mlstm_scores", "mlstm_main")
 # bf16 products the mLSTM kernel does for each product of its least work
@@ -249,12 +266,16 @@ def traced_launch_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean duration of one launch of the kernel named ``kernel`` over
     ``reps`` calls of ``fn`` in a CUDA-only trace (:func:`device_busy`):
     its own time on the card, without the gaps between launches that
-    :func:`kernel_ms` counts."""
-    _, grids = device_busy(lambda: [fn() for _ in range(reps)], top=1000)
-    hits = [(ms, n) for g, ms, n in grids if kernel in g]
-    launches = sum(n for _, n in hits)
-    check(launches > 0, f"traced_launch_ms: no {kernel} in the trace")
-    return sum(ms for ms, _ in hits) / launches
+    :func:`kernel_ms` counts.  A trace that holds no launch of it (the
+    profiler has dropped records) is taken again, up to three times."""
+    for _ in range(3):
+        _, grids = device_busy(lambda: [fn() for _ in range(reps)],
+                               top=1000)
+        hits = [(ms, n) for g, ms, n in grids if kernel in g]
+        launches = sum(n for _, n in hits)
+        if launches > 0:
+            return sum(ms for ms, _ in hits) / launches
+    fail(f"traced_launch_ms: no {kernel} in three traces")
 
 
 def cold_ms(fn) -> float:
@@ -428,6 +449,100 @@ def backward_and_decode_layouts(dev, tau, training, decode,
                 lambda: vgm_decode_table_cuda(*args), "vgm_decode_table"),
             "plain_ms": kernel_ms(lambda: vgm_decode_table_ref(*args))})
     return {"backward": backward, "decode": rows, "empty_kernel_ms": empty_ms}
+
+
+def encode_bytes_ops(n: int, q: int, k: int) -> tuple[int, int]:
+    """Bytes an encode must move (x, the params, the Gumbels read once;
+    the slots, or the column's alphas and betas, written once) and its
+    float operations, for ``n`` rows of ``q`` columns of ``k`` modes."""
+    return 4 * (n * q + 3 * q * k + n * q * k + n * q * (1 + k)), \
+        n * q * (9 * k + 4)
+
+
+def encode_shapes(dev) -> list:
+    """Device time per call (:func:`kernel_ms`) of the table encode at
+    ``ENCODE_TABLE_SHAPES`` and of the column encode at
+    ``ENCODE_COLUMN_ROWS`` rows, Kmax 10, beside each launch's own duration
+    in a trace, the plain version's time and the bound of the bytes moved;
+    each result equal to the plain version's.  Inputs drawn on the card
+    from a seed: x ~ 2 N(0, 1), means ~ 3 N(0, 1), stds in [0.5, 1.5), log
+    weights ~ 0.3 N(0, 1), Gumbels -log(-log u), not nudged away from
+    ties."""
+    import torch
+    from repro_torch.kernels.ref import vgm_encode_ref, vgm_encode_table_ref
+    from repro_torch.kernels.vgm_encode import (vgm_encode_cuda,
+                                                vgm_encode_table_cuda)
+    g = torch.Generator(dev).manual_seed(31)
+    K = ENCODE_KMAX
+    rows = []
+    for n, q in (list(ENCODE_TABLE_SHAPES)
+                 + [(n, 1) for n in ENCODE_COLUMN_ROWS]):
+        entry = "table" if (n, q) in ENCODE_TABLE_SHAPES else "column"
+        x = 2 * torch.randn((n, q), device=dev, generator=g)
+        means = 3 * torch.randn((q, K), device=dev, generator=g)
+        stds = 0.5 + torch.rand((q, K), device=dev, generator=g)
+        logw = 0.3 * torch.randn((q, K), device=dev, generator=g)
+        u = torch.rand((n, q * K), device=dev, generator=g)
+        gum = -torch.log(-torch.log(u.clamp_min(1e-30)))
+        if entry == "table":
+            args, kern, plain = ((x, means, stds, logw, gum),
+                                 vgm_encode_table_cuda, vgm_encode_table_ref)
+        else:
+            args = (x[:, 0].contiguous(), means[0].contiguous(),
+                    stds[0].contiguous(), logw[0].contiguous(), gum)
+            kern, plain = vgm_encode_cuda, vgm_encode_ref
+        got, want = kern(*args), plain(*args)
+        same = (torch.equal(got, want) if entry == "table" else
+                all(torch.equal(a, b) for a, b in zip(got, want)))
+        check(same, f"vgm_encode {entry} at ({n}, {q}), Kmax {K}: not equal "
+              "to the plain version")
+        rows.append({
+            "entry": entry, "rows": n, "columns": q, "kmax": K,
+            "ms": kernel_ms(lambda: kern(*args)),
+            "trace_ms": traced_launch_ms(lambda: kern(*args), "vgm_encode"),
+            "plain_ms": kernel_ms(lambda: plain(*args)),
+            "bound_ms": bound_ms(*encode_bytes_ops(n, q, K))[0]})
+    return rows
+
+
+def print_encode_shapes(rows) -> None:
+    print("vgm_encode by shape (device time per call; its traced launch; "
+          "plain; bound): " + "; ".join(
+              f"{r['entry']} ({r['rows']}, {r['columns']}): "
+              f"{r['ms'] * 1e3:.2f} us, traced {r['trace_ms'] * 1e3:.2f} us, "
+              f"plain {r['plain_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_ms'] / r['ms']:.2f} "
+              "of it)" for r in rows))
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi gave nothing"
+
+
+def encode_shapes_main(tree: Path) -> int:
+    """The card, the build and the encode's shape line alone, for the
+    ``repro_torch`` of the checkout at ``tree``.  Run in turns on two
+    checkouts in one call (``--tree`` pointing at the other), it compares
+    their encode kernels on one card; the wrappers' signatures are the
+    same in every checkout that has them."""
+    import torch
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False: "
+          "this script needs a card")
+    check((tree / "src" / "repro_torch").is_dir(),
+          f"no src/repro_torch in {tree}")
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import _build
+    print(card_line())
+    print(f"tree {tree}; kernel build: {_build.build_all():.2f} s")
+    rows = encode_shapes(torch.device("cuda", 0))
+    print_encode_shapes(rows)
+    print(json.dumps({"tree": str(tree), "encode_shapes": rows}))
+    return 0
 
 
 def same_params(states) -> bool:
@@ -1071,11 +1186,7 @@ def main() -> int:
         mark[0] = now
 
     # ---- 1. the card --------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    card = smi[0] if smi else "nvidia-smi gave nothing"
+    card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
@@ -1412,6 +1523,9 @@ def main() -> int:
     col_args = (cx, p0.means.float().contiguous(), p0.stds.float().contiguous(),
                 kernel_log_weights(p0).contiguous(), cg)
 
+    enc_bytes, enc_ops = encode_bytes_ops(Nq, Q, K)
+    col_bytes, col_ops = encode_bytes_ops(Nq, 1, K0)
+
     def cmp_exact(got, want):
         errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
         return max(errs), max(errs) == 0.0, "0 (exact)"
@@ -1423,8 +1537,7 @@ def main() -> int:
         dict(name="vgm_encode_table", stem="vgm_encode",
              kern=lambda: vgm_encode_table_cuda(*enc_args),
              plain=lambda: plain.vgm_encode_table_ref(*enc_args),
-             bytes=4 * (Nq * Q + 3 * Q * K + Nq * Q * K + Nq * Q * (1 + K)),
-             ops=Nq * Q * (9 * K + 4), tol=0.0,
+             bytes=enc_bytes, ops=enc_ops, tol=0.0,
              replaces="src/repro/kernels/vgm_encode.py:137",
              launches=launches["vgm_encode_table"],
              shape=f"x ({Nq}, {Q}), Kmax {K}"),
@@ -1468,7 +1581,7 @@ def main() -> int:
              kern=lambda: vgm_encode_cuda(*col_args),
              plain=lambda: plain.vgm_encode_ref(*col_args),
              compare=cmp_exact,
-             bytes=4 * (2 * Nq + 3 * K0 + 2 * Nq * K0), ops=Nq * (9 * K0 + 4),
+             bytes=col_bytes, ops=col_ops,
              replaces="src/repro/kernels/vgm_encode.py:89",
              launches=record["encode_loop"]["launches"]["vgm_encode"],
              shape=f"x ({Nq},), K {K0}"),
@@ -1665,8 +1778,11 @@ def main() -> int:
                       f"{r['trace_ms'] * 1e3:.2f} us, plain "
                       f"{r['plain_ms'] * 1e3:.2f} us" for r in bd["decode"])
           + f"; an empty kernel {bd['empty_kernel_ms'] * 1e3:.2f} us")
+    enc_shapes = encode_shapes(dev)
+    print_encode_shapes(enc_shapes)
     record.update(kernels=kernels, shapes=shapes, timing=timing,
-                  activation_layouts=sweep, backward_decode_layouts=bd)
+                  activation_layouts=sweep, backward_decode_layouts=bd,
+                  encode_shapes=enc_shapes)
     lap("kernels against plain")
     record["phase_s"] = phase_s
     print(f"phase seconds {phase_s}")
@@ -1682,4 +1798,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--encode-shapes", action="store_true",
+                    help="run only the card, the build and the encode's "
+                    "shape line")
+    ap.add_argument("--tree", type=Path, default=ROOT,
+                    help="with --encode-shapes: the checkout whose "
+                    "repro_torch to time (default: this one)")
+    cli = ap.parse_args()
+    sys.exit(encode_shapes_main(cli.tree.resolve()) if cli.encode_shapes
+             else main())

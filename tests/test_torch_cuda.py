@@ -21,7 +21,10 @@ to its plain version exactly at every 4-byte offset of the slots' base
 from a 16-byte boundary.  The merge kernel sums the same products in client order; the plain version's
 normalizing sum of the weights may round an ulp apart: rtol 1e-6, atol
 1e-7, and an all-zero edge gives exact +0.0.  The single-column encode equals its plain version
-exactly, as the table encode does.
+exactly, as the table encode does, each at every 4-byte offset of x and
+of the Gumbels from a 16-byte boundary (the kernel stages and stores the
+head and tail of every stretch apart), at the main path's shapes, ragged
+tiles, Kmax 1 and Q x Kmax 3,072.
 
 The flash-attention kernels sum their products in tile order (float32
 inputs as fused multiply-adds on the CUDA cores, bfloat16 inputs on the
@@ -56,9 +59,10 @@ from repro_torch.kernels.vgm_decode import vgm_decode_table_cuda  # noqa: E402
 from repro_torch.kernels.vgm_encode import (  # noqa: E402
     vgm_encode_cuda, vgm_encode_table_cuda)
 from repro_torch.kernels.weighted_agg import weighted_agg_cuda  # noqa: E402
-from torch_kernel_inputs import (ACT_LAYOUTS, DECODE_CASES,  # noqa: E402
-                                 FLASH_CASES, activation_inputs, as_tensors,
-                                 decode_inputs, encode_inputs, mlstm_inputs)
+from torch_kernel_inputs import (ACT_LAYOUTS, COLUMN_CASES,  # noqa: E402
+                                 DECODE_CASES, ENCODE_CASES, FLASH_CASES,
+                                 activation_inputs, as_tensors, decode_inputs,
+                                 encode_inputs, mlstm_inputs)
 
 
 @pytest.fixture
@@ -73,11 +77,27 @@ def _on(device, arrays):
     return [a.to(device) for a in as_tensors(*arrays)]
 
 
-@pytest.mark.parametrize("N,Q,K,ks", [(4099, 5, 10, [10, 10, 7, 3, 10]),
-                                      (1, 1, 1, [1]),
-                                      (1000, 22, 10, [10] * 22)])
-def test_vgm_encode_table_matches_plain(cuda, N, Q, K, ks):
-    inputs = _on(cuda, encode_inputs(1, N, Q, K, ks))
+def _shifted(t, shift):
+    """``t`` in a view ``shift`` floats past a 16-byte boundary."""
+    if not shift:
+        return t
+    big = torch.zeros(t.numel() + 4, device=t.device)
+    off = (4 - big.data_ptr() // 4 % 4 + shift) % 4
+    view = big[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4 * shift
+    return view
+
+
+@pytest.mark.parametrize("N,Q,K,ks", ENCODE_CASES)
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_vgm_encode_table_matches_plain(cuda, N, Q, K, ks, shift):
+    """Exactly the plain version, with x and the Gumbels at aligned bases
+    and in views 1-3 floats past one (x by ``shift``, the Gumbels by
+    ``4 - shift``)."""
+    x, means, stds, logw, g = _on(cuda, encode_inputs(1, N, Q, K, ks))
+    inputs = (_shifted(x, shift), means, stds, logw,
+              _shifted(g, (4 - shift) % 4))
     before = _build.DISPATCH_COUNTS["vgm_encode_table"]
     out = ops.vgm_encode_table(*inputs)
     torch.cuda.synchronize()
@@ -217,10 +237,12 @@ def test_weighted_agg_matches_plain(cuda, E, C, D):
     torch.testing.assert_close(flat, out[0], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("N,K,k", [(40_000, 10, 10), (4099, 10, 7), (1, 1, 1)])
-def test_vgm_encode_column_matches_plain(cuda, N, K, k):
+@pytest.mark.parametrize("N,K,k", COLUMN_CASES)
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_vgm_encode_column_matches_plain(cuda, N, K, k, shift):
     x, means, stds, logw, g = _on(cuda, encode_inputs(8, N, 1, K, [k]))
-    args = (x[:, 0].contiguous(), means[0], stds[0], logw[0], g)
+    args = (_shifted(x[:, 0].contiguous(), shift), means[0], stds[0],
+            logw[0], _shifted(g, (4 - shift) % 4))
     before = _build.DISPATCH_COUNTS["vgm_encode"]
     alpha, beta = ops.vgm_encode(*args)
     torch.cuda.synchronize()

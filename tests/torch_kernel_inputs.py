@@ -36,6 +36,23 @@ def as_tensors(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
+# (N, Q, Kmax, live modes per column) of the table encode's card tests
+ENCODE_CASES = [
+    (40_000, 22, 10, [10] * 22),         # intrusion at the paper's rows
+    (8000, 5, 10, [10, 10, 7, 3, 10]),   # one training client of adult
+    (4099, 5, 10, [10, 10, 7, 3, 10]),   # N not a multiple of a tile
+    (1000, 22, 10, [10] * 22),
+    (129, 3, 7, [7, 2, 5]),              # ragged tiles, odd Kmax
+    (777, 6, 1, [1] * 6),                # Kmax 1
+    (1, 1, 1, [1]),
+    (37, 96, 32, [32, 17] * 48),         # Q * Kmax = 3,072
+]
+# (N, K, live modes) of the single-column encode's card tests
+COLUMN_CASES = [
+    (40_000, 10, 10), (8000, 10, 10), (4099, 10, 7), (129, 7, 7),
+    (1000, 1, 1), (1, 1, 1), (33, 3072, 3072),
+]
+
 # (N, Q, Kmax, live modes per column) of the table decode's card tests
 DECODE_CASES = [
     (4099, 5, 10, [10, 10, 7, 3, 10]),   # N not a multiple of a block
