@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving, federated CTGAN training, federated
-LM pre-training and xLSTM LM serving paths once on one CUDA card.
+LM pre-training and xLSTM LM serving paths, the paper's baseline
+architectures and the degraded federation once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -82,13 +83,36 @@ which stops the run with a non-zero exit on failure:
    shape line: the table encode at (40,000, 22), (40,000, 5), (8,000, 5)
    and (128, 22) and the column encode at 40,000 and 8,000 rows, Kmax 10,
    each equal to its plain version, with its device time, its traced
-   launch, the plain version's time and its bound.
+   launch, the plain version's time and its bound;
+15. the paper's architectures (Fig. 8a's split, ``benchmarks/timing.py``):
+   ``adult`` at 40,000 rows copied whole to 5 clients, ``ctgan_paper``,
+   two epochs of one pass over 40,000 rows at batch 500 (80 steps) each
+   of ``run_federated`` (one round an epoch), ``run_mdtgan`` and
+   ``run_centralized``, each ending with an evaluation on 40,000 rows:
+   the second epoch's seconds, bytes per epoch and their seconds on the
+   paper's 943 Mb/s link, calculation + communication and Fed-TGAN's
+   speedup over MD-TGAN, avg JSD and WD; every loss and report finite;
+   per epoch MD launches 2 x 5 x 80 activation forwards, 5 x 80 backwards
+   and no merge, centralized 2 x 80 and 80 (and encodes once), Fed-TGAN
+   5 x 80 backwards and one merge;
+16. the degraded federation: phase 6's IID split, 4 rounds of 2 local
+   steps, a composed ``FaultPlan`` (a dropout in round 1, a NaN update in
+   round 2, a x50 update in round 3), participation 0.8, FedProx mu 0.01,
+   the default guard, a checkpoint per stretch of 2 rounds: one
+   ``weighted_agg`` a round, ``client_ok`` False exactly for the faulted
+   clients and those out of the round's cohort, the merged model finite
+   and the clients bit-identical after each merge; a fresh ``resume=True``
+   run from the round-2 checkpoint ends with the same generator, bit for
+   bit; the NaN plan with ``guard=None`` retries once and blocks that
+   client; one ``program="host"`` round against one ``program="fed"``
+   round within the round tolerance, the host round launching no merge.
 
 Phases 3-5 are the serving main path, phase 6 the CTGAN training main
 path, phase 10 the LM main path, phase 11 the path of the single-column
-encode and phase 13 the xLSTM serving path: the kernel launch counters
-are set to 0 just before each and read just after, every kernel of the
-path must have launched, and no plain-version counter may move.  The last two lines of output are the
+encode, phase 13 the xLSTM serving path, and each run of phases 15 and
+16: the kernel launch counters are set to 0 just before each and read
+just after, every kernel of the path must have launched, and no
+plain-version counter may move.  The last two lines of output are the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; a longer
 record goes to ``chiprun_out/chip_smoke.json``.
 
@@ -156,6 +180,13 @@ MLSTM_GRIDS = ("mlstm_gates", "mlstm_prep", "mlstm_scores", "mlstm_main")
 # bf16 products the mLSTM kernel does for each product of its least work
 MLSTM_PRODUCTS = 3
 XL_BATCH, XL_PROMPT, XL_GEN, XL_SPLIT, XL_CHUNK = 4, 2048, 32, 1792, 256
+# the paper's architectures (Fig. 8a's split): epochs of each run; an epoch
+# is one pass over a client's 40,000 rows at the config's batch
+ARCH_EPOCHS = 2
+# the degraded federation: (round, client) of the dropout, the NaN update
+# and the x50 update; the participation rate and FedProx's mu
+DROP_AT, NAN_AT, BYZ_AT, BYZ_SCALE = (1, 3), (2, 1), (3, 4), 50.0
+PARTICIPATION, PROX_MU = 0.8, 0.01
 
 
 def fail(msg: str):
@@ -1154,6 +1185,291 @@ def xlstm_phase(dev) -> dict:
             "f32_s": f32_s}
 
 
+def _launch_delta(before: dict) -> dict:
+    """Kernel launches (and plain calls) since the snapshot ``before``."""
+    from repro_torch.kernels import ops
+    return {k: v - before.get(k, 0) for k, v in ops.DISPATCH_COUNTS.items()
+            if v - before.get(k, 0)}
+
+
+def _no_plain_calls(where: str) -> None:
+    from repro_torch.kernels import ops
+    refs = {k: v for k, v in ops.DISPATCH_COUNTS.items() if k.endswith("_ref")}
+    check(not refs, f"{where}: the plain route ran on the card: {refs}")
+
+
+def architectures_phase(dev, cfg, ds) -> dict:
+    """Phase 15, the paper's architectures at full width (Fig. 8a's split,
+    ``benchmarks/timing.py``): 5 full copies of the table, two epochs of
+    each of Fed-TGAN (a round of one local epoch), MD-TGAN and
+    centralized training, each ending with one evaluation."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import comm_model
+    from repro_torch.core.architectures import (run_centralized, run_federated,
+                                                run_mdtgan)
+    from repro_torch.kernels import ops
+    from repro_torch.tabular import partition_full_copy
+
+    parts = partition_full_copy(ds, FED_CLIENTS)
+    steps = N_ROWS // cfg.batch_size
+    out = {}
+
+    def timed(kind, run):
+        """Run one architecture with the counters at 0; per epoch: (done,
+        checked) times, launches and the finite-loss gate."""
+        ops.DISPATCH_COUNTS.clear()
+        marks, per_epoch = [], []
+        snap = [dict(ops.DISPATCH_COUNTS)]
+
+        def hook(ep, metrics):
+            torch.cuda.synchronize()
+            done = time.perf_counter()
+            per_epoch.append(_launch_delta(snap[0]))
+            snap[0] = dict(ops.DISPATCH_COUNTS)
+            vals = {k: v.cpu().numpy() for k, v in metrics.items()
+                    if k in ("d_loss", "g_loss")}
+            check(all(np.isfinite(v).all() for v in vals.values()),
+                  f"{kind} epoch {ep}: non-finite loss {vals}")
+            marks.append((done, time.perf_counter()))
+        t0 = time.perf_counter()
+        res = run(hook)
+        t_end = time.perf_counter()
+        _no_plain_calls(kind)
+        check(len(marks) == ARCH_EPOCHS, f"{kind}: {len(marks)} epochs ran")
+        [rep] = res.history
+        check(all(np.isfinite(v) for k, v in rep.items() if k != "round"),
+              f"{kind}: report not finite: {rep}")
+        epoch_s = marks[1][0] - marks[0][1]        # the second epoch
+        launches = dict(ops.DISPATCH_COUNTS)
+        out[kind] = {"epoch_s": epoch_s, "run_s": t_end - t0,
+                     "seconds": res.seconds, "launches": launches,
+                     "per_epoch_launches": per_epoch,
+                     "bytes": res.comm_bytes_per_round,
+                     "transfer_s": comm_model.transfer_seconds(
+                         res.comm_bytes_per_round),
+                     "avg_jsd": rep["avg_jsd"], "avg_wd": rep["avg_wd"]}
+        return res, per_epoch, launches
+
+    _, per, total = timed("fed-tgan", lambda hook: run_federated(
+        parts, ds.schema, cfg=cfg, rounds=ARCH_EPOCHS, local_steps=steps,
+        seed=0, weighting="fedtgan", eval_real=ds.data,
+        eval_every=ARCH_EPOCHS, eval_samples=N_ROWS, device=dev,
+        on_round=lambda r, st, m: (check(same_params(st),
+                                         f"fed-tgan round {r}: clients "
+                                         "differ"), hook(r, m))))
+    for ep in per:
+        check(ep.get("weighted_agg") == 1 and ep.get(
+            "segment_activations_bwd") == FED_CLIENTS * steps,
+            f"fed-tgan launches per round {ep}")
+    _, per, total = timed("md-tgan", lambda hook: run_mdtgan(
+        parts, ds.schema, cfg=cfg, epochs=ARCH_EPOCHS, steps_per_epoch=steps,
+        seed=0, eval_real=ds.data, eval_every=ARCH_EPOCHS,
+        eval_samples=N_ROWS, on_epoch=hook, device=dev))
+    for ep in per:
+        check(ep.get("segment_activations") == 2 * FED_CLIENTS * steps
+              and ep.get("segment_activations_bwd") == FED_CLIENTS * steps
+              and "weighted_agg" not in ep,
+              f"md-tgan launches per epoch {ep}: want forward "
+              f"{2 * FED_CLIENTS * steps}, backward {FED_CLIENTS * steps}, "
+              "no merge")
+    check("weighted_agg" not in total, f"md-tgan merged: {total}")
+    _, per, total = timed("centralized", lambda hook: run_centralized(
+        ds.data, ds.schema, cfg=cfg, epoch_steps=steps, epochs=ARCH_EPOCHS,
+        seed=0, eval_real=ds.data, eval_every=ARCH_EPOCHS,
+        eval_samples=N_ROWS, on_epoch=hook, device=dev))
+    for ep in per:
+        check(ep.get("segment_activations") == 2 * steps
+              and ep.get("segment_activations_bwd") == steps,
+              f"centralized launches per epoch {ep}")
+    check(total.get("vgm_encode_table") == 1,
+          f"centralized encodes {total.get('vgm_encode_table')} times")
+
+    fed, md = out["fed-tgan"], out["md-tgan"]
+    tot_fed = fed["epoch_s"] + fed["transfer_s"]
+    tot_md = md["epoch_s"] + md["transfer_s"]
+    speedup = 100.0 * (tot_md - tot_fed) / tot_fed
+    out["split"] = {"fed_total_s": tot_fed, "md_total_s": tot_md,
+                    "fed_speedup_pct": speedup, "steps_per_epoch": steps}
+    for kind, r in out.items():
+        if kind == "split":
+            continue
+        print(f"{kind}: second epoch {r['epoch_s']:.4f} s ({steps} steps "
+              f"of batch {cfg.batch_size} per client); "
+              f"{r['bytes'] / 1e6:.3f} MB on the wire per epoch = "
+              f"{r['transfer_s']:.4f} s at 943 Mb/s; run {r['run_s']:.2f} s "
+              f"with setup and evaluation; avg_jsd {r['avg_jsd']:.4f} "
+              f"avg_wd {r['avg_wd']:.4f}; launches per epoch "
+              f"{r['per_epoch_launches'][-1]}")
+    print(f"Fig. 8a split per epoch (calculation on this card + "
+          f"communication on the paper's 943 Mb/s link): Fed-TGAN "
+          f"{fed['epoch_s']:.4f} + {fed['transfer_s']:.4f} = {tot_fed:.4f} s, "
+          f"MD-TGAN {md['epoch_s']:.4f} + {md['transfer_s']:.4f} = "
+          f"{tot_md:.4f} s: Fed-TGAN's speedup over MD-TGAN {speedup:.1f}%")
+    return out
+
+
+def degraded_phase(dev, cfg, ds) -> dict:
+    """Phase 16, the degraded federation at full width: the IID 5-client
+    split, 4 rounds of 2 local steps, a composed fault plan, partial
+    participation, FedProx, the default guard and checkpoints; then a
+    resume from the round-2 checkpoint, the NaN plan without a guard
+    (retry and blocklist), and one host-oracle round against one fused
+    round."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.architectures import (PARTICIPATION_STREAM,
+                                                run_federated)
+    from repro_torch.core.fedavg import sample_participation
+    from repro_torch.device import seeded_generator
+    from repro_torch.fed import compose, no_faults
+    from repro_torch.kernels import ops
+    from repro_torch.tabular import partition_iid
+
+    parts = partition_iid(ds, FED_CLIENTS, seed=0)
+    R, P = FED_ROUNDS, FED_CLIENTS
+
+    def single(field, at, value):
+        plan = no_faults(R, P)
+        leaf = getattr(plan, field).clone()
+        leaf[at] = value
+        return plan._replace(**{field: leaf})
+    drop = single("participate", DROP_AT, False)
+    nan = single("nan_mask", NAN_AT, True)
+    byz = single("scale", BYZ_AT, BYZ_SCALE)
+    plan = compose(drop, nan, byz)
+    faulted = ~drop.participate | nan.nan_mask | (byz.scale != 1.0)
+    kw = dict(cfg=cfg, rounds=R, local_steps=FED_STEPS, seed=0,
+              weighting="fedtgan", device=dev)
+    out = {"plan": plan.summary()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        rounds = []
+        ops.DISPATCH_COUNTS.clear()
+        snap = [dict(ops.DISPATCH_COUNTS)]
+
+        def on_round(r, states, m):
+            torch.cuda.synchronize()
+            delta = _launch_delta(snap[0])
+            snap[0] = dict(ops.DISPATCH_COUNTS)
+            check(delta.get("weighted_agg") == 1,
+                  f"degraded round {r}: launches {delta}")
+            check(same_params(states), f"degraded round {r}: clients differ")
+            check(all(bool(torch.isfinite(t).all())
+                      for t in states[0].params()),
+                  f"degraded round {r}: merged state not finite")
+            rounds.append({k: m[k].cpu().numpy().tolist() for k in
+                           ("client_ok", "client_suspect", "w_eff",
+                            "update_norm", "merged")})
+        ckpt = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        full = run_federated(parts, ds.schema, faults=plan,
+                             participation=PARTICIPATION, fedprox_mu=PROX_MU,
+                             ckpt_dir=ckpt, eval_real=ds.data, eval_every=2,
+                             eval_samples=N_ROWS, on_round=on_round, **kw)
+        run_s = time.perf_counter() - t0
+        _no_plain_calls("degraded run")
+        check(len(rounds) == R, f"degraded run: {len(rounds)} rounds")
+        w = torch.as_tensor(full.weights, device=dev)
+        cohorts = []
+        for r, got in enumerate(rounds):
+            keep = sample_participation(w, PARTICIPATION, generator=
+                                        seeded_generator(dev, 0,
+                                                         PARTICIPATION_STREAM,
+                                                         r)).cpu().numpy()
+            cohort = keep & plan.participate[r].numpy()
+            cohorts.append(cohort.tolist())
+            want = cohort & ~faulted[r].numpy()
+            check(np.array_equal(np.asarray(got["client_ok"]), want),
+                  f"degraded round {r}: client_ok {got['client_ok']}, want "
+                  f"{want.tolist()} (cohort {cohort.tolist()}, faulted "
+                  f"{faulted[r].numpy().tolist()})")
+        check(all(np.isfinite(v) for k, v in full.history[-1].items()
+                  if k != "round"), f"degraded report {full.history[-1]}")
+        print(f"degraded run: {R} rounds x {FED_STEPS} local steps, 5 IID "
+              f"clients, plan {out['plan']} (dropout {DROP_AT}, NaN "
+              f"{NAN_AT}, x{BYZ_SCALE:g} {BYZ_AT} as (round, client)), "
+              f"participation {PARTICIPATION}, FedProx mu {PROX_MU}, default "
+              f"guard; {run_s:.2f} s; one weighted_agg per round; cohorts "
+              f"{[[int(c) for c in x] for x in cohorts]}; client_ok "
+              f"{[[int(c) for c in x['client_ok']] for x in rounds]} (False "
+              f"exactly where faulted or out of the cohort); avg_jsd "
+              f"{full.history[-1]['avg_jsd']:.4f}")
+        out.update(run_s=run_s, rounds=rounds, cohorts=cohorts,
+                   report=full.history[-1])
+
+        # resume from the round-2 checkpoint in a fresh run
+        for f in os.listdir(ckpt):
+            if f.startswith("ckpt_00000004"):
+                os.remove(os.path.join(ckpt, f))
+        ops.DISPATCH_COUNTS.clear()
+        resumed = run_federated(parts, ds.schema, faults=plan,
+                                participation=PARTICIPATION,
+                                fedprox_mu=PROX_MU, ckpt_dir=ckpt,
+                                resume=True, **kw)
+        launches = dict(ops.DISPATCH_COUNTS)
+        diffs = [float((a - b).detach().abs().max()) for a, b in
+                 zip(full.final_g_params.parameters(),
+                     resumed.final_g_params.parameters())]
+        exact = all(torch.equal(a, b) for a, b in
+                    zip(full.final_g_params.parameters(),
+                        resumed.final_g_params.parameters()))
+        check(launches.get("weighted_agg") == R - 2,
+              f"resume ran {launches.get('weighted_agg')} merges, not {R - 2}")
+        check(exact, f"resumed run's generator differs: max abs "
+              f"{max(diffs):.3g}")
+        print(f"resume from the round-2 checkpoint: {R - 2} rounds run, the "
+              f"final generator bit-identical to the uninterrupted run's")
+        out["resume_exact"] = exact
+
+        # the NaN plan with the guard off: one retry, client 1 blocked
+        ops.DISPATCH_COUNTS.clear()
+        retry = run_federated(parts, ds.schema, faults=nan, guard=None,
+                              eval_every=2, **kw)
+        want_blocked = np.zeros(P, bool)
+        want_blocked[NAN_AT[1]] = True
+        check(retry.retries == 1 and np.array_equal(retry.blocked,
+                                                    want_blocked),
+              f"guard off: retries {retry.retries}, blocked "
+              f"{retry.blocked.tolist()}")
+        check(all(bool(torch.isfinite(t).all())
+                  for t in retry.final_g_params.parameters()),
+              "guard off: final generator not finite")
+        print(f"NaN plan, guard off: retries {retry.retries}, blocked "
+              f"{retry.blocked.astype(int).tolist()}, final generator finite")
+        out.update(retries=retry.retries, blocked=retry.blocked.tolist())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # one round of the host oracle against one fused round
+    gens = {}
+    for program in ("fed", "host"):
+        ops.DISPATCH_COUNTS.clear()
+        res = run_federated(parts, ds.schema, program=program,
+                            **dict(kw, rounds=1))
+        gens[program] = (res.final_g_params, dict(ops.DISPATCH_COUNTS))
+    _no_plain_calls("host vs fed")
+    check(gens["fed"][1].get("weighted_agg") == 1
+          and "weighted_agg" not in gens["host"][1],
+          f"host vs fed launches {gens['fed'][1]} / {gens['host'][1]}")
+    d = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(
+        gens["fed"][0].parameters(), gens["host"][0].parameters())]).detach()
+    worst, within = float(d.max()), float((d <= 2e-6).float().mean())
+    check(worst <= cfg.lr * FED_STEPS and within >= 0.99,
+          f"host vs fed: max abs {worst:.3g}, {within:.4f} within 2e-6")
+    print(f"host oracle vs fused program, 1 round: generator max abs diff "
+          f"{worst:.3g} (<= lr x steps), {within:.4f} within 2e-6 (>= "
+          f"0.99); weighted_agg {gens['fed'][1].get('weighted_agg')} / "
+          f"{gens['host'][1].get('weighted_agg', 0)}")
+    out["host_vs_fed"] = {"max_abs": worst, "within_2e-6": within}
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1784,6 +2100,14 @@ def main() -> int:
                   activation_layouts=sweep, backward_decode_layouts=bd,
                   encode_shapes=enc_shapes)
     lap("kernels against plain")
+
+    # ---- 15. the paper's architectures (Fig. 8a's split) ---------------
+    record["architectures"] = architectures_phase(dev, cfg, fed_ds)
+    lap("architectures")
+
+    # ---- 16. the degraded federation -----------------------------------
+    record["degraded"] = degraded_phase(dev, cfg, fed_ds)
+    lap("degraded federation")
     record["phase_s"] = phase_s
     print(f"phase seconds {phase_s}")
 

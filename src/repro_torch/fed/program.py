@@ -7,10 +7,17 @@ ONE fused ``weighted_agg`` merge of generator and critic parameters
 together (one per tier with ``n_edges``), and the merged model copied back
 to every client.  ``run`` loops over rounds with the weights resolved once.
 
+``faulted_round`` is the degraded round: partial participation combined
+with a :class:`~repro_torch.fed.faults.FaultPlan`'s slice, the local
+rounds, the faults applied to the transmitted ``(P, D)`` stack, the
+update guard, and the masked, renormalized merge in the same single
+``weighted_agg`` launch (an all-masked round keeps the previous model).
+``fedprox_mu > 0`` pulls every local step toward the round's global
+parameters (:func:`repro_torch.core.fedavg.fedprox_wrap`).
+
 The reference lowers a round into one XLA program; here a round is a
 sequence of launches on one stream with no host wait in it (metrics stay
-on the device).  The faulted, traced, FedProx and DP renderings are not
-ported (ROADMAP).
+on the device).  The traced and DP renderings are not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -18,13 +25,19 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..core.fedavg import fedprox_wrap, sample_participation
 from ..core.weighting import (quantity_only_weights, uniform_weights,
                               weights_from_divergence)
 from ..gan.ctgan import CTGANConfig
-from ..gan.trainer import GANState, StepNoise
+from ..gan.trainer import GANState, StepNoise, make_train_steps
+from ..kernels import ops
 from ..synth import RoundEngine, SamplerDraws, SamplerTables
+from ..synth.engine import _stack
 from ..tabular.encoders import SpanInfo
-from .merge import fused_weighted_merge, replicate, tiered_weighted_merge
+from .faults import (DEFAULT_NORM_MULT, FaultPlan, UpdateGuard, apply_faults,
+                     guard_ok, update_diagnostics)
+from .merge import (flatten_stacked, replicate, tiered_weighted_merge_flat,
+                    unflatten_merged)
 
 WEIGHTINGS = ("fedtgan", "uniform", "quantity")
 
@@ -45,22 +58,41 @@ def resolve_weights(weighting: str, S: torch.Tensor,
 
 class FederatedProgram:
     """Federated execution for one table schema: local rounds, weighting,
-    the fused merge and the redistribution."""
+    the fused merge and the redistribution, dense or degraded."""
 
     def __init__(self, cfg: CTGANConfig, spans: Sequence[SpanInfo],
                  cond_spans: Sequence[SpanInfo], *, batch: int,
                  local_steps: int, weighting: str = "fedtgan",
+                 participation: float = 1.0, fedprox_mu: float = 0.0,
+                 guard: UpdateGuard | None = None,
                  n_edges: int | None = None):
         if weighting not in WEIGHTINGS:
             raise ValueError(f"unknown weighting {weighting!r}; "
                              f"options: {WEIGHTINGS}")
+        if not 0.0 < participation <= 1.0:
+            raise ValueError(f"participation must be in (0, 1], "
+                             f"got {participation}")
         if n_edges is not None and n_edges < 1:
             raise ValueError(f"n_edges must be >= 1, got {n_edges}")
         self.cfg = cfg
         self.weighting = weighting
+        self.participation = float(participation)
+        self.fedprox_mu = float(fedprox_mu)
+        self.guard = guard
         self.n_edges = n_edges
+        step_fn = None
+        if self.fedprox_mu > 0:
+            step_fn = fedprox_wrap(make_train_steps(cfg, tuple(spans),
+                                                    tuple(cond_spans)),
+                                   self.fedprox_mu)
         self.engine = RoundEngine(cfg, tuple(spans), tuple(cond_spans),
-                                  batch=batch, local_steps=local_steps)
+                                  batch=batch, local_steps=local_steps,
+                                  step_fn=step_fn)
+
+    def _merge_flat(self, flat: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if self.n_edges is None:
+            return ops.weighted_average_flat(flat, w)
+        return tiered_weighted_merge_flat(flat, w, self.n_edges)
 
     def merge_states(self, states: Sequence[GANState],
                      w: torch.Tensor) -> Sequence[GANState]:
@@ -68,12 +100,19 @@ class FederatedProgram:
         critic parameters in ONE ``weighted_agg`` dispatch (one per tier
         with ``n_edges``), then copied back into every client."""
         trees = [s.params() for s in states]
-        if self.n_edges is None:
-            merged = fused_weighted_merge(trees, w)
-        else:
-            merged = tiered_weighted_merge(trees, w, self.n_edges)
-        replicate(merged, trees)
+        merged = self._merge_flat(flatten_stacked(trees), w)
+        replicate(unflatten_merged(merged, trees[0]), trees)
         return states
+
+    def clients(self, states: Sequence[GANState],
+                tables: Sequence[SamplerTables], **inject):
+        """Every client's local round; under FedProx each client's
+        parameters before the round (the broadcast global model) are the
+        anchor its steps are pulled toward."""
+        aux = None
+        if self.fedprox_mu > 0:
+            aux = [[t.detach().clone() for t in s.params()] for s in states]
+        return self.engine.clients_round(states, tables, aux=aux, **inject)
 
     def weighted_round(self, states: Sequence[GANState],
                        tables: Sequence[SamplerTables], w: torch.Tensor, *,
@@ -82,8 +121,8 @@ class FederatedProgram:
         """One global round given resolved weights; ``draws`` and ``noise``
         inject every client's draws (see :meth:`RoundEngine.
         clients_round`).  Returns (states, metrics (clients, steps))."""
-        states, metrics = self.engine.clients_round(states, tables,
-                                                    draws=draws, noise=noise)
+        states, metrics = self.clients(states, tables, draws=draws,
+                                       noise=noise)
         return self.merge_states(states, w), metrics
 
     def global_round(self, states: Sequence[GANState],
@@ -107,5 +146,79 @@ class FederatedProgram:
             if on_round is not None:
                 on_round(r, states, m)
             out.append(m)
-        return states, {k: torch.stack([m[k] for m in out])
-                        for k in (out[0] if out else ())}
+        return states, _stack(out)
+
+    def faulted_round(self, states: Sequence[GANState],
+                      tables: Sequence[SamplerTables], w: torch.Tensor,
+                      fault: FaultPlan, *,
+                      generator: torch.Generator | None = None,
+                      draws: Sequence[SamplerDraws] | None = None,
+                      noise: Sequence[Sequence[StepNoise]] | None = None):
+        """One global round under a (P,)-sliced :class:`FaultPlan`.
+
+        With ``participation < 1`` the round's cohort is drawn from
+        ``generator`` (:func:`sample_participation`) and combined with the
+        plan's mask.  The local rounds run, the faults corrupt the
+        transmitted stack, the guard decides the survivors ``ok``; then
+        ``w_eff = w * ok``, the stack's masked rows zeroed, ONE
+        ``weighted_agg`` launch (one per tier with ``n_edges``)
+        renormalizes over the survivors, and a round with no survivor
+        keeps the previous model.  A neutral plan gives the dense round's
+        parameters.
+
+        Extra metrics: ``client_ok`` (survived mask and guard),
+        ``client_suspect`` (the advisory corruption signal the retry
+        blocklist reads, guard or not), ``update_norm``, ``w_eff``
+        (renormalized) and the 0-dim ``merged`` (False: the round froze).
+        """
+        dev = w.device
+        participate = fault.participate.to(dev)
+        if self.participation < 1.0:
+            participate = participate & sample_participation(
+                w, self.participation, generator=generator)
+        trees = [s.params() for s in states]
+        prev_flat = flatten_stacked(trees)
+        states, metrics = self.clients(states, tables, draws=draws,
+                                       noise=noise)
+        flat = apply_faults(flatten_stacked(trees), prev_flat,
+                            fault.nan_mask.to(dev), fault.scale.to(dev))
+        norm_mult = (self.guard.norm_mult if self.guard is not None
+                     and self.guard.norm_mult > 0 else DEFAULT_NORM_MULT)
+        diag = update_diagnostics(flat, prev_flat, participate,
+                                  norm_mult=norm_mult)
+        ok = guard_ok(self.guard, diag, participate)
+        w_eff = w * ok
+        wsum = torch.sum(w_eff)
+        merged = self._merge_flat(torch.where(ok[:, None], flat, 0.0), w_eff)
+        merged = torch.where(wsum > 0, merged, prev_flat[0])
+        replicate(unflatten_merged(merged, trees[0]), trees)
+        metrics = dict(metrics, client_ok=ok,
+                       client_suspect=participate & diag["suspect"],
+                       update_norm=diag["norm"],
+                       w_eff=w_eff / torch.clamp(wsum, min=1e-12),
+                       merged=wsum > 0)
+        return states, metrics
+
+    def run_faulted(self, states: Sequence[GANState],
+                    tables: Sequence[SamplerTables], S: torch.Tensor,
+                    n_rows: torch.Tensor, plan: FaultPlan, *,
+                    generators: Sequence[torch.Generator] | None = None,
+                    on_round: Callable | None = None):
+        """:meth:`faulted_round` over the plan's rounds, the weights
+        resolved once; ``generators[r]`` draws round r's cohort.  Returns
+        (states, metrics stacked over the rounds)."""
+        if self.participation < 1.0 and (generators is None
+                                         or len(generators) < plan.rounds):
+            raise ValueError("partial participation needs one generator per "
+                             "round of the plan")
+        w = resolve_weights(self.weighting, S, n_rows)
+        out = []
+        for r in range(plan.rounds):
+            fault = FaultPlan(*(leaf[r] for leaf in plan))
+            states, m = self.faulted_round(
+                states, tables, w, fault,
+                generator=None if generators is None else generators[r])
+            if on_round is not None:
+                on_round(r, states, m)
+            out.append(m)
+        return states, _stack(out)

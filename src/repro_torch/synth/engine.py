@@ -5,7 +5,11 @@
 many train steps, with no host copy in between.  ``clients_round`` runs
 every client's local round in turn (the reference vmaps them; a Python
 loop over the clients launches the same kernels, and ``torch.func.vmap``
-cannot trace a ctypes launch).
+cannot trace a ctypes launch); ``run_round`` and ``run`` are the
+single-client entry points (one round; many rounds in turn).  A prebuilt
+``step_fn`` replaces the train step, and a round-constant ``aux`` is
+handed to every step: the hooks FedProx uses
+(:func:`repro_torch.core.fedavg.fedprox_wrap`).
 
 ``sample_synthetic_conditional`` is CTGAN's conditional sampling mode (the
 condition vectors follow the table's training-by-sampling marginals);
@@ -13,7 +17,7 @@ condition vectors follow the table's training-by-sampling marginals);
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -32,48 +36,76 @@ class RoundEngine:
 
     def __init__(self, cfg: CTGANConfig, spans: Sequence[SpanInfo],
                  cond_spans: Sequence[SpanInfo], *, batch: int,
-                 local_steps: int):
+                 local_steps: int, step_fn: Callable | None = None):
+        """``step_fn(state, batch, noise)`` replaces the train step of
+        :func:`repro_torch.gan.trainer.make_train_steps` (FedProx wraps
+        it)."""
         self.cfg = cfg
         self.batch = int(batch)
         self.local_steps = int(local_steps)
         self.cond_dim = sum(s.width for s in cond_spans)
-        self.step_fn = make_train_steps(cfg, tuple(spans), tuple(cond_spans))
+        self.step_fn = step_fn or make_train_steps(cfg, tuple(spans),
+                                                   tuple(cond_spans))
 
     def local_round(self, state: GANState, tables: SamplerTables, *,
                     draws: SamplerDraws | None = None,
-                    noise: Sequence[StepNoise] | None = None):
+                    noise: Sequence[StepNoise] | None = None, aux=None):
         """E local steps of ``state`` (in place) on one ``draw_batch`` of
         E x batch rows, split into E batches in order.  ``draws`` injects
         the sampler's draws and ``noise`` one :class:`StepNoise` per step;
-        what is not injected comes from ``state.rng``.  Returns (state,
-        metrics stacked over the steps)."""
+        what is not injected comes from ``state.rng``.  ``aux``, when
+        given, is round-constant context handed to every step as
+        ``step_fn(state, (batch, aux), noise)``.  Returns (state, metrics
+        stacked over the steps)."""
         E, B = self.local_steps, self.batch
         cond, mask, real = draw_batch(tables, E * B, self.cond_dim,
                                       generator=state.rng, draws=draws)
         metrics = []
         for e in range(E):
             rows = slice(e * B, (e + 1) * B)
+            batch = (cond[rows], mask[rows], real[rows])
             metrics.append(self.step_fn(
-                state, (cond[rows], mask[rows], real[rows]),
+                state, batch if aux is None else (batch, aux),
                 None if noise is None else noise[e]))
-        return state, {k: torch.stack([m[k] for m in metrics])
-                       for k in metrics[0]}
+        return state, _stack(metrics)
+
+    # the reference's jitted single-client entry point; eager here
+    run_round = local_round
 
     def clients_round(self, states: Sequence[GANState],
                       tables: Sequence[SamplerTables], *,
                       draws: Sequence[SamplerDraws] | None = None,
-                      noise: Sequence[Sequence[StepNoise]] | None = None):
-        """Every client's :meth:`local_round`, client by client; ``draws``
-        and ``noise`` are per client when given.  Returns (states, metrics
-        stacked (clients, steps))."""
-        metrics = []
-        for p, (st, tb) in enumerate(zip(states, tables)):
-            _, m = self.local_round(
-                st, tb, draws=None if draws is None else draws[p],
-                noise=None if noise is None else noise[p])
-            metrics.append(m)
-        return states, {k: torch.stack([m[k] for m in metrics])
-                        for k in metrics[0]}
+                      noise: Sequence[Sequence[StepNoise]] | None = None,
+                      aux: Sequence | None = None):
+        """Every client's :meth:`local_round`, client by client; ``draws``,
+        ``noise`` and ``aux`` are per client when given.  Returns (states,
+        metrics stacked (clients, steps))."""
+        def pick(x, p):
+            return None if x is None else x[p]
+        metrics = [self.local_round(st, tb, draws=pick(draws, p),
+                                    noise=pick(noise, p),
+                                    aux=pick(aux, p))[1]
+                   for p, (st, tb) in enumerate(zip(states, tables))]
+        return states, _stack(metrics)
+
+    def run(self, state: GANState, tables: SamplerTables, rounds: int, *,
+            draws: Sequence[SamplerDraws] | None = None,
+            noise: Sequence[Sequence[StepNoise]] | None = None):
+        """``rounds`` local rounds of one client in turn; ``draws`` and
+        ``noise`` are per round when given.  Returns (state, metrics
+        stacked (rounds, steps))."""
+        metrics = [self.local_round(
+            state, tables, draws=None if draws is None else draws[r],
+            noise=None if noise is None else noise[r])[1]
+            for r in range(rounds)]
+        return state, _stack(metrics)
+
+
+def _stack(metrics: Sequence[dict]) -> dict:
+    """Per-step (or per-client, per-round) metric dicts stacked on a new
+    leading axis."""
+    return {k: torch.stack([m[k] for m in metrics])
+            for k in (metrics[0] if metrics else ())}
 
 
 @torch.no_grad()

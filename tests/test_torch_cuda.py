@@ -20,7 +20,11 @@ to |ct - dot| / tau = 10; padded lanes give exactly 0.  The decode is held
 to its plain version exactly at every 4-byte offset of the slots' base
 from a 16-byte boundary.  The merge kernel sums the same products in client order; the plain version's
 normalizing sum of the weights may round an ulp apart: rtol 1e-6, atol
-1e-7, and an all-zero edge gives exact +0.0.  The single-column encode equals its plain version
+1e-7, and an all-zero edge gives exact +0.0, as does the degraded
+round's all-masked merge (rows zeroed, weights 0).  One MD-TGAN step on
+the card is held to the same step on the CPU as a train step is: losses
+rtol 1e-4, Adam moments atol 2e-6, parameters atol lr and 99% of them
+within 2e-6.  The single-column encode equals its plain version
 exactly, as the table encode does, each at every 4-byte offset of x and
 of the Gumbels from a 16-byte boundary (the kernel stages and stores the
 head and tail of every stretch apart), at the main path's shapes, ragged
@@ -235,6 +239,109 @@ def test_weighted_agg_matches_plain(cuda, E, C, D):
         assert not out[-1].any() and not torch.signbit(out[-1]).any()
     flat = ops.weighted_average_flat(stacked[0], w[0])
     torch.testing.assert_close(flat, out[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("ok", [(1, 0, 1, 1, 0), (0, 0, 0, 0, 0)])
+def test_weighted_agg_masked_weights_match_plain(cuda, ok):
+    """The degraded round's merge input: masked clients' rows zeroed and
+    their weights 0 (``w * ok``); all masked gives exact +0.0, which the
+    round then replaces with the previous model."""
+    g = torch.Generator(cuda).manual_seed(11)
+    stacked = torch.randn((5, 1_238_401), device=cuda, generator=g)
+    ok = torch.tensor(ok, dtype=torch.bool, device=cuda)
+    stacked[~ok] = float("nan")
+    safe = torch.where(ok[:, None], stacked, 0.0)
+    w = torch.rand(5, device=cuda, generator=g) * ok
+    out = ops.weighted_average_flat(safe, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, tref.weighted_agg_ref(safe, w),
+                               rtol=1e-6, atol=1e-7)
+    if not ok.any():
+        assert not out.any() and not torch.signbit(out).any()
+    else:
+        assert bool(torch.isfinite(out).all())
+
+
+def test_md_step_on_the_card_matches_the_cpu(cuda):
+    """One MD-TGAN step (3 critics, the central generator) on the card
+    against the same step on the CPU, from the same weights and noise,
+    TF32 off: losses rtol 1e-4, moments atol 2e-6, parameters atol lr and
+    99% of elements within 2e-6 (Adam turns rounding-level gradients into
+    lr-sized steps); 2P activation forwards and P backwards launched."""
+    import copy
+
+    from repro_torch.core.architectures import make_md_step
+    from repro_torch.gan.ctgan import CTGANConfig
+    from repro_torch.gan.trainer import (GANState, StepNoise,
+                                         draw_step_noise, init_gan_state)
+    from repro_torch.optim import AdamState
+    from repro_torch.synth import DeviceSampler, SamplerDraws
+    from repro_torch.tabular import fit_centralized_encoders, make_dataset
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, P = torch.device("cpu"), 3
+    cfg = CTGANConfig(z_dim=16, gen_hidden=(32, 32), disc_hidden=(32, 32),
+                      pac=4, batch_size=64)
+    ds = make_dataset("adult", n_rows=1200, seed=3)
+    enc = fit_centralized_encoders(ds.data, ds.schema, device=cpu,
+                                   generator=torch.Generator().manual_seed(3))
+    encoded = enc.encode(ds.data,
+                         generator=torch.Generator().manual_seed(4)).numpy()
+    parts = np.array_split(encoded, P)
+    tables = {d: [DeviceSampler(x, enc, d).tables for x in parts]
+              for d in (cpu, cuda)}
+    states = [init_gan_state(cfg, enc.cond_dim, enc.encoded_dim, device=cpu,
+                             generator=torch.Generator().manual_seed(5 + p),
+                             rng=torch.Generator().manual_seed(p))
+              for p in range(P)]
+
+    def to(x, d):
+        return [t.to(d) for t in x] if isinstance(x, list) else x.to(d)
+
+    def on_card(st):
+        return GANState(copy.deepcopy(st.gen).to(cuda),
+                        copy.deepcopy(st.disc).to(cuda),
+                        AdamState(to(st.g_opt.mu, cuda), to(st.g_opt.nu, cuda),
+                                  st.g_opt.count),
+                        AdamState(to(st.d_opt.mu, cuda), to(st.d_opt.nu, cuda),
+                                  st.d_opt.count), st.step,
+                        torch.Generator(cuda))
+    gpu_states = [on_card(st) for st in states]
+    g = torch.Generator().manual_seed(9)
+    B, n_spans = cfg.batch_size, tables[cpu][0].cum.shape[0]
+    draws = [SamplerDraws(torch.randint(0, n_spans, (B,), generator=g),
+                          torch.rand(B, generator=g), torch.rand(B, generator=g))
+             for _ in range(P)]
+    noise = [draw_step_noise(g, cfg, states[p].disc, B, enc.encoded_dim, cpu)
+             for p in range(P)]
+    step = make_md_step(cfg, enc.spans(), enc.condition_spans(), B)
+    g_opt_cpu, m_cpu = step(states[0].gen, states[0].g_opt, states,
+                            tables[cpu], draws=draws, noise=noise)
+    with ops.dispatch_scope() as d:
+        g_opt_gpu, m_gpu = step(
+            gpu_states[0].gen, gpu_states[0].g_opt, gpu_states, tables[cuda],
+            draws=draws, noise=[StepNoise(*(to(x, cuda) for x in nz))
+                                for nz in noise])
+        torch.cuda.synchronize()
+    assert dict(d) == {"segment_activations": 2 * P,
+                       "segment_activations_bwd": P}
+    for k in ("g_loss", "d_loss"):
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-4,
+                                   atol=1e-6)
+    pairs = [(g_opt_gpu, g_opt_cpu)] + [(a.d_opt, b.d_opt) for a, b in
+                                        zip(gpu_states, states)]
+    for x, y in pairs:
+        assert x.count == y.count
+        for a, b in zip(x.mu + x.nu, y.mu + y.nu):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-6)
+    params = list(zip(gpu_states[0].gen.parameters(),
+                      states[0].gen.parameters()))
+    for a, b in zip(gpu_states, states):
+        params += list(zip(a.disc.parameters(), b.disc.parameters()))
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().reshape(-1)
+                       for a, b in params])
+    assert float(diffs.max()) <= cfg.lr
+    assert float((diffs <= 2e-6).float().mean()) >= 0.99
 
 
 @pytest.mark.parametrize("N,K,k", COLUMN_CASES)

@@ -45,17 +45,15 @@ def dropout_keeps(key, cfg, batch):
             for k, h in zip(keys, cfg.disc_hidden)]
 
 
-def step_noise(rng, cfg, spans, batch, dim):
-    """``gan/trainer.py:make_train_steps``: one step's draws from the
-    state's key, and the key the state carries on.  ``split(rng, 3)`` ->
-    (next, critic, generator); the critic's key splits 5 ways (z,
-    activations, two dropouts, GP), the GP's 2 ways (eps, unused); the
-    generator's 3 ways (z, activations, dropout)."""
-    nxt, kd, kg = jax.random.split(rng, 3)
+def _noise(kd, kg, cfg, spans, batch, dim):
+    """One step's :class:`StepNoise` from the critic's and the generator's
+    keys: the critic's key splits 5 ways (z, activations, two dropouts,
+    GP), the GP's 2 ways (eps, unused); the generator's 3 ways (z,
+    activations, dropout)."""
     kz, ka, kd1, kd2, kgp = jax.random.split(kd, 5)
     keps, _ = jax.random.split(kgp)
     gz, ga, gd = jax.random.split(kg, 3)
-    noise = StepNoise(
+    return StepNoise(
         z_d=t(jax.random.normal(kz, (batch, cfg.z_dim))),
         u_d=activation_uniforms(ka, spans, batch, dim),
         keep_d_fake=dropout_keeps(kd1, cfg, batch),
@@ -64,13 +62,44 @@ def step_noise(rng, cfg, spans, batch, dim):
         z_g=t(jax.random.normal(gz, (batch, cfg.z_dim))),
         u_g=activation_uniforms(ga, spans, batch, dim),
         keep_g=dropout_keeps(gd, cfg, batch))
-    return noise, nxt
+
+
+def step_noise(rng, cfg, spans, batch, dim):
+    """``gan/trainer.py:make_train_steps``: one step's draws from the
+    state's key, and the key the state carries on.  ``split(rng, 3)`` ->
+    (next, critic, generator), then :func:`_noise`."""
+    nxt, kd, kg = jax.random.split(rng, 3)
+    return _noise(kd, kg, cfg, spans, batch, dim), nxt
 
 
 def round_noise(rng, cfg, spans, batch, dim, steps):
     """``steps`` consecutive steps' :func:`step_noise` of one client."""
+    return rounds_noise(rng, cfg, spans, batch, dim, steps, 1)[0]
+
+
+def rounds_noise(rng, cfg, spans, batch, dim, steps, rounds):
+    """``rounds`` consecutive local rounds' :func:`step_noise` of one
+    client (the state's key carries on from round to round)."""
     out = []
-    for _ in range(steps):
-        noise, rng = step_noise(rng, cfg, spans, batch, dim)
-        out.append(noise)
+    for _ in range(rounds):
+        this = []
+        for _ in range(steps):
+            noise, rng = step_noise(rng, cfg, spans, batch, dim)
+            this.append(noise)
+        out.append(this)
     return out
+
+
+def md_step_draws(key, cfg, spans, batch, dim, n_spans, n_clients):
+    """``core/architectures.py:run_mdtgan``'s ``md_step``: ``split(key)``
+    -> (key, batches); client p's batch from ``split(batches, P)[p]``;
+    ``split(key, P + 1)``: client p's critic key, and the generator's,
+    split P ways, client p's generator key.  Returns (per-client
+    :class:`SamplerDraws`, per-client :class:`StepNoise`)."""
+    key, kb = jax.random.split(key)
+    draws = [sampler_draws(k, batch, n_spans)
+             for k in jax.random.split(kb, n_clients)]
+    kd = jax.random.split(key, n_clients + 1)
+    ks = jax.random.split(kd[n_clients], n_clients)
+    return draws, [_noise(kd[p], ks[p], cfg, spans, batch, dim)
+                   for p in range(n_clients)]
