@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving, federated CTGAN training, federated
 LM pre-training and xLSTM LM serving paths, the paper's baseline
-architectures and the degraded federation once on one CUDA card.
+architectures, the degraded federation and differentially private
+federation with the privacy attacks once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -105,14 +106,34 @@ which stops the run with a non-zero exit on failure:
    run from the round-2 checkpoint ends with the same generator, bit for
    bit; the NaN plan with ``guard=None`` retries once and blocks that
    client; one ``program="host"`` round against one ``program="fed"``
-   round within the round tolerance, the host round launching no merge.
+   round within the round tolerance, the host round launching no merge;
+17. DP and privacy at full width: phase 6's split and config, 2 rounds of
+   2 local steps with an evaluation on 40,000 rows, traced
+   (``run_federated(trace=RoundTrace())``) and untraced at one seed: the
+   final generators bit-identical, one ``weighted_agg`` a round, the
+   recorded stacks equal to each merge's input in the reference's layout,
+   ``save`` / ``load`` bit-exact; the attacks on the trace
+   (``loss_threshold_mia`` on 2,000 of client 0's rows against 2,000
+   holdout rows, ``null_auc``, ``dominant_category_hits``,
+   ``leakage_report``): finite scores, AUCs in [0, 1], the encodes on
+   ``vgm_encode_table``, each attack's seconds; the same run with
+   ``dp=DPConfig(l2_clip=1.0, noise_mult=0.3)``: one merge a round,
+   ``epsilon`` equal to ``dp_epsilon(4, 500, 8000, 0.3)``; one DP step's
+   per-pack gradients (their memory) with every clipped pack norm within
+   the clip, and ms per DP step against a non-private one (median and
+   range of 5 alternating windows of 10 steps, and each step's device
+   busy time from a CUDA-only trace); one
+   smollm-135m round with client-level DP at phase 10's configuration:
+   one ``weighted_agg``, the flash launches of a round, a finite loss.
 
 Phases 3-5 are the serving main path, phase 6 the CTGAN training main
 path, phase 10 the LM main path, phase 11 the path of the single-column
-encode, phase 13 the xLSTM serving path, and each run of phases 15 and
-16: the kernel launch counters are set to 0 just before each and read
+encode, phase 13 the xLSTM serving path, and each run of phases 15, 16
+and 17: the kernel launch counters are set to 0 just before each and read
 just after, every kernel of the path must have launched, and no
-plain-version counter may move.  The last two lines of output are the
+plain-version counter may move.  The ``kernels`` line's ``launches`` are
+the main paths' counts; phase 17's are given apart as ``launches_phase17``.
+The last two lines of output are the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; a longer
 record goes to ``chiprun_out/chip_smoke.json``.
 
@@ -187,6 +208,11 @@ ARCH_EPOCHS = 2
 # and the x50 update; the participation rate and FedProx's mu
 DROP_AT, NAN_AT, BYZ_AT, BYZ_SCALE = (1, 3), (2, 1), (3, 4), 50.0
 PARTICIPATION, PROX_MU = 0.8, 0.01
+# DP and privacy: rounds and local steps of the traced / DP runs, one of
+# the reference's frontier points (benchmarks/privacy_bench.py), the rows
+# of each side of the membership attack, and the steps timed
+PRIV_ROUNDS, PRIV_STEPS, PRIV_CLIP, PRIV_NOISE = 2, 2, 1.0, 0.3
+PRIV_ATTACK_ROWS, PRIV_TIMED, PRIV_WINDOWS = 2000, 10, 5
 
 
 def fail(msg: str):
@@ -1470,6 +1496,307 @@ def degraded_phase(dev, cfg, ds) -> dict:
     return out
 
 
+def privacy_phase(dev, cfg, ds) -> dict:
+    """Phase 17, DP and privacy at full width: phase 6's IID split and
+    config, a traced run and an untraced one (the same seed), the attacks
+    on the trace, the same run with DP, one checked and timed DP step, and
+    one LM round with client-level DP."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.architectures import run_federated
+    from repro_torch.fed import setup_federation
+    from repro_torch.gan import dp as gdp
+    from repro_torch.gan.ctgan import init_discriminator
+    from repro_torch.gan.trainer import draw_step_noise, make_train_steps
+    from repro_torch.interop import (flat_from_reference, flat_to_reference,
+                                     gan_flat_index)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as lm_train
+    from repro_torch.privacy import (RoundTrace, dominant_category_hits,
+                                     leakage_report, loss_threshold_mia,
+                                     null_auc)
+    from repro_torch.synth import draw_batch
+    from repro_torch.tabular import make_dataset, partition_iid
+
+    parts = partition_iid(ds, FED_CLIENTS, seed=0)
+    R, E = PRIV_ROUNDS, PRIV_STEPS
+    kw = dict(cfg=cfg, rounds=R, local_steps=E, seed=0, weighting="fedtgan",
+              program="fed", eval_real=ds.data, eval_every=R,
+              eval_samples=N_ROWS, device=dev)
+    out: dict = {}
+    counts: dict = {}
+
+    def run(name, **extra):
+        """One run with the counters at 0; each round's merge input is
+        kept (the ``weighted_agg`` wrapper's argument) and the round's
+        launches checked: one merge."""
+        ops.DISPATCH_COUNTS.clear()
+        inputs, per_round, snap = [], [], [{}]
+        real_merge = ops.weighted_average_flat
+
+        def merge(flat, w):
+            inputs.append(flat.detach().clone())
+            return real_merge(flat, w)
+
+        def on_round(r, states, m):
+            torch.cuda.synchronize()
+            per_round.append(_launch_delta(snap[0]))
+            snap[0] = dict(ops.DISPATCH_COUNTS)
+            check(same_params(states), f"{name} round {r}: clients differ")
+            vals = {k: m[k].cpu().numpy() for k in ("d_loss", "g_loss")}
+            check(all(np.isfinite(v).all() for v in vals.values()),
+                  f"{name} round {r}: losses {vals}")
+        ops.weighted_average_flat = merge
+        t0 = time.perf_counter()
+        try:
+            res = run_federated(parts, ds.schema, on_round=on_round,
+                                **dict(kw, **extra))
+        finally:
+            ops.weighted_average_flat = real_merge
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        _no_plain_calls(name)
+        for r, c in enumerate(per_round):
+            check(c.get("weighted_agg") == 1, f"{name} round {r}: {c}")
+        check(len(per_round) == R, f"{name}: {len(per_round)} rounds")
+        [rep] = res.history
+        check(all(np.isfinite(v) for k, v in rep.items() if k != "round"),
+              f"{name}: report not finite: {rep}")
+        for k, v in ops.DISPATCH_COUNTS.items():
+            counts[k] = counts.get(k, 0) + v
+        out[name] = {"seconds": seconds, "launches": dict(ops.DISPATCH_COUNTS),
+                     "avg_jsd": rep["avg_jsd"], "avg_wd": rep["avg_wd"]}
+        return res, inputs
+
+    # (a) traced and untraced, the same seed
+    trace = RoundTrace()
+    traced, inputs = run("traced", trace=trace)
+    plain, _ = run("untraced")
+    diffs = {n: float((a - b).detach().abs().max()) for (n, a), b in zip(
+        traced.final_g_params.named_parameters(),
+        plain.final_g_params.parameters())}
+    exact = not any(diffs.values())
+    check(exact, f"traced run's generator differs from the untraced run's: "
+          f"max abs by parameter {diffs}")
+    enc = traced.encoders
+    index = gan_flat_index(traced.final_g_params, init_discriminator(
+        cfg, enc.cond_dim, enc.encoded_dim, device=dev,
+        generator=torch.Generator(dev).manual_seed(0)))
+    check(trace.n_rounds == R and len(inputs) == R,
+          f"trace: {trace.n_rounds} rounds, {len(inputs)} merges")
+    for r, flat in enumerate(inputs):
+        want = flat_to_reference(flat, index).cpu().numpy()
+        check(np.array_equal(trace.updates[r], want),
+              f"trace round {r}: the stack is not the merge input")
+        back = flat_from_reference(torch.as_tensor(trace.updates[r],
+                                                   device=dev), index)
+        check(torch.equal(back, flat), f"trace round {r}: no round trip")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = str(Path(tmp) / "trace.npz")
+        trace.save(path)
+        loaded = RoundTrace.load(path)
+        check(loaded.equals(trace), "trace save/load is not bit-exact")
+        trace_mb = Path(path).stat().st_size / 1e6
+    print(f"traced run: {R} rounds x {E} local steps, 5 IID clients, "
+          f"{out['traced']['seconds']:.2f} s (untraced "
+          f"{out['untraced']['seconds']:.2f} s); one weighted_agg a round; "
+          f"final generator bit-identical to the untraced run's; the "
+          f"recorded stacks ({trace.updates[0].shape}) equal the merge "
+          f"inputs in the reference's layout; save/load bit-exact "
+          f"({trace_mb:.1f} MB)")
+    out["traced"].update(exact=exact, trace_mb=trace_mb)
+
+    # (b) the attacks on that trace, encodes on the card
+    holdout = make_dataset("adult", n_rows=PRIV_ATTACK_ROWS, seed=100).data
+    members = parts[0][:PRIV_ATTACK_ROWS]
+    attacks = {}
+
+    def attack(name, fn):
+        ops.DISPATCH_COUNTS.clear()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        attacks[name] = {"seconds": time.perf_counter() - t0,
+                         "launches": dict(ops.DISPATCH_COUNTS)}
+        _no_plain_calls(f"attack {name}")
+        for k, v in ops.DISPATCH_COUNTS.items():
+            counts[k] = counts.get(k, 0) + v
+        return value
+    mia = attack("loss_threshold_mia", lambda: loss_threshold_mia(
+        trace, cfg, enc, members, holdout))
+    null = attack("null_auc", lambda: null_auc(trace, cfg, enc, holdout))
+    hits = attack("dominant_category_hits", lambda: dominant_category_hits(
+        trace, cfg, enc))
+    report = attack("leakage_report", lambda: leakage_report(trace, cfg, enc))
+    scores = np.concatenate([mia["member_scores"], mia["holdout_scores"]])
+    check(np.isfinite(scores).all(), "attack scores not finite")
+    check(all(0.0 <= a <= 1.0 for a in (mia["auc"], null,
+                                        hits["hit_rate"])),
+          f"AUCs {mia['auc']}, {null}, hit rate {hits['hit_rate']}")
+    check(attacks["loss_threshold_mia"]["launches"].get("vgm_encode_table")
+          == 2 * 2 * R, f"MIA encodes {attacks['loss_threshold_mia']}")
+    check(all(np.isfinite(v).all() for col in
+              report["setup_moments"].values() for v in col.values()),
+          "leakage report's moments not finite")
+    out["attacks"] = {"runs": attacks, "mia_auc": mia["auc"],
+                      "null_auc": null, "hit_rate": hits["hit_rate"]}
+    print(f"attacks on the trace ({len(members)} of client 0's rows against "
+          f"{len(holdout)} holdout rows): MIA AUC {mia['auc']:.4f}, null AUC "
+          f"{null:.4f}, probe hit rate {hits['hit_rate']:.4f}; seconds "
+          + ", ".join(f"{k} {v['seconds']:.2f}" for k, v in attacks.items())
+          + f"; the MIA's launches {attacks['loss_threshold_mia']['launches']}")
+
+    # (c) the same run with DP
+    conf = gdp.DPConfig(l2_clip=PRIV_CLIP, noise_mult=PRIV_NOISE)
+    private, _ = run("dp", dp=conf)
+    n_min = N_ROWS // FED_CLIENTS
+    want_eps = gdp.dp_epsilon(R * E, cfg.batch_size, n_min, PRIV_NOISE)
+    check(private.epsilon == want_eps,
+          f"epsilon {private.epsilon}, want {want_eps}")
+    print(f"DP run (clip {PRIV_CLIP}, noise {PRIV_NOISE}): "
+          f"{out['dp']['seconds']:.2f} s, one weighted_agg a round, epsilon "
+          f"{private.epsilon:.6f} (delta {conf.delta}), avg_jsd "
+          f"{out['dp']['avg_jsd']:.4f} (non-private "
+          f"{out['traced']['avg_jsd']:.4f})")
+    out["dp"]["epsilon"] = private.epsilon
+
+    # one DP step checked, and DP against non-private steps timed
+    fe = setup_federation(parts, ds.schema, cfg, 1, "fedtgan", device=dev)
+    state = fe.states[0]
+    batch = draw_batch(fe.tables[0], cfg.batch_size, fe.enc.cond_dim,
+                       generator=torch.Generator(dev).manual_seed(5))
+    cond, _, real = batch
+    noise = gdp.draw_dp_step_noise(torch.Generator(dev).manual_seed(6), cfg,
+                                   state.disc, cfg.batch_size,
+                                   real.shape[1], dev)
+    with torch.no_grad():
+        fake = ops.segment_activations(state.gen(noise.z_d, cond), fe.spans,
+                                       noise.u_d, cfg.tau)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads, _ = gdp.per_pack_critic_grads(
+        state.disc, cfg, torch.cat([real, cond], 1),
+        torch.cat([fake, cond], 1), noise)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    grads_mb = sum(g.numel() * g.element_size() for g in grads) / 1e6
+    n_packs = cfg.batch_size // cfg.pac
+
+    def pack_norms(gs):
+        return torch.sqrt(sum(torch.sum(g.reshape(n_packs, -1).double() ** 2,
+                                        dim=1) for g in gs))
+    raw_norms = pack_norms(grads)
+    clipped = pack_norms(gdp.clip_packs(grads, PRIV_CLIP))
+    check(float(clipped.max()) <= PRIV_CLIP * (1 + 1e-6),
+          f"clipped pack norms up to {float(clipped.max())}")
+    del grads
+
+    def stepper(step, draw):
+        """A window of PRIV_TIMED steps on one replica, each on its own
+        draw of the noise (drawn before any clock starts), run once to warm
+        up."""
+        st = state.replica(torch.Generator(dev).manual_seed(7))
+        noises = [draw(st) for _ in range(PRIV_TIMED)]
+
+        def window():
+            for nz in noises:
+                step(st, batch, nz)
+        window()
+        return window
+
+    windows = {
+        "plain": stepper(make_train_steps(cfg, fe.spans, fe.cond_spans),
+                         lambda st: draw_step_noise(
+                             st.rng, cfg, st.disc, cfg.batch_size,
+                             real.shape[1], dev)),
+        "dp": stepper(gdp.make_dp_train_steps(cfg, fe.spans, fe.cond_spans,
+                                              l2_clip=PRIV_CLIP,
+                                              noise_mult=PRIV_NOISE),
+                      lambda st: gdp.draw_dp_step_noise(
+                          st.rng, cfg, st.disc, cfg.batch_size,
+                          real.shape[1], dev))}
+    step_ms = {"plain": [], "dp": []}
+    for i in range(PRIV_WINDOWS):      # plain, dp, dp, plain, ...
+        for k in ("plain", "dp") if i % 2 == 0 else ("dp", "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            windows[k]()
+            torch.cuda.synchronize()
+            step_ms[k].append((time.perf_counter() - t0) * 1e3 / PRIV_TIMED)
+    busy_ms = {k: device_busy(w, repeats=3)[0] / PRIV_TIMED
+               for k, w in windows.items()}
+    plain_ms, dp_ms = (statistics.median(step_ms[k]) for k in ("plain", "dp"))
+    idle = {k: 1 - busy_ms[k] / statistics.median(step_ms[k])
+            for k in step_ms}
+    n_params = sum(p.numel() for p in state.disc.parameters())
+    print(f"DP step at batch {cfg.batch_size}, pac {cfg.pac} ({n_packs} "
+          f"packs, critic {n_params:,} parameters), ms per step, median of "
+          f"{PRIV_WINDOWS} windows of {PRIV_TIMED} steps (min-max): DP "
+          f"{dp_ms:.3f} ({min(step_ms['dp']):.3f}-{max(step_ms['dp']):.3f}),"
+          f" non-private {plain_ms:.3f} ({min(step_ms['plain']):.3f}-"
+          f"{max(step_ms['plain']):.3f}), {dp_ms / plain_ms:.2f}x; device "
+          f"busy per step {busy_ms['dp']:.3f} / {busy_ms['plain']:.3f} ms "
+          f"(idle share {idle['dp']:.3f} / {idle['plain']:.3f}); per-pack "
+          f"gradients {grads_mb:.1f} MB, peak {peak_mb:.1f} MB above the "
+          f"state while taking them; pack norms {float(raw_norms.min()):.3f}"
+          f"-{float(raw_norms.max()):.3f} before the clip, at most "
+          f"{float(clipped.max()):.6f} after (clip {PRIV_CLIP})")
+    out["step"] = {"dp_ms": dp_ms, "plain_ms": plain_ms,
+                   "windows_ms": step_ms, "busy_ms": busy_ms, "idle": idle,
+                   "grads_mb": grads_mb, "peak_mb": peak_mb,
+                   "critic_params": n_params,
+                   "pack_norms": [float(raw_norms.min()),
+                                  float(raw_norms.max())],
+                   "clipped_max": float(clipped.max())}
+
+    # (d) one LM round with client-level DP at phase 10's configuration
+    lm_cfg = dataclasses.replace(get_config("smollm-135m"),
+                                 use_flash_kernel=True)
+    ops.DISPATCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    _, hist, _ = lm_train.run_federated(
+        lm_cfg, clients=LM_CLIENTS, rounds=1, local_steps=LM_STEPS,
+        batch=LM_BATCH, seq=LM_SEQ, lr=3e-4, iid=False, weighting="fedtgan",
+        dp=conf, device=dev)
+    torch.cuda.synchronize()
+    lm_s = time.perf_counter() - t0
+    _no_plain_calls("LM DP round")
+    lm_counts = dict(ops.DISPATCH_COUNTS)
+    for k, v in lm_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    per_round = LM_CLIENTS * LM_STEPS * lm_cfg.n_layers
+    want = {"weighted_agg": 1, "flash_attention_dq": per_round,
+            "flash_attention_dkv": per_round,
+            "flash_attention_fwd": per_round * (2 if lm_cfg.remat else 1)}
+    check({k: lm_counts.get(k) for k in want} == want,
+          f"LM DP round launches {lm_counts}, want {want}")
+    # the round's losses come before its merge: phase 10's first round's
+    check(np.isfinite(hist[0]["loss"])
+          and abs(hist[0]["loss"] - LM_LOSSES[0]) <= 1e-2,
+          f"LM DP loss {hist[0]['loss']}, phase 10's {LM_LOSSES[0]}")
+    print(f"LM DP round: smollm-135m, {LM_CLIENTS} clients x {LM_STEPS} "
+          f"steps, clip {PRIV_CLIP}, noise {PRIV_NOISE}: mean loss "
+          f"{hist[0]['loss']:.4f} (within 1e-2 of {LM_LOSSES[0]}), "
+          f"{lm_s:.2f} s; launches {want} (gated)")
+    out["lm_dp"] = {"loss": hist[0]["loss"], "seconds": lm_s,
+                    "launches": lm_counts}
+
+    on_path = ("vgm_encode_table", "segment_activations",
+               "segment_activations_bwd", "vgm_decode_table", "weighted_agg",
+               "flash_attention_fwd", "flash_attention_dq",
+               "flash_attention_dkv")
+    check(all(counts.get(k, 0) > 0 for k in on_path),
+          f"phase 17: a kernel of the path never launched: {counts}")
+    out["launches"] = counts
+    print(f"phase 17 launches {counts}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2108,6 +2435,12 @@ def main() -> int:
     # ---- 16. the degraded federation -----------------------------------
     record["degraded"] = degraded_phase(dev, cfg, fed_ds)
     lap("degraded federation")
+
+    # ---- 17. DP and privacy --------------------------------------------
+    record["privacy"] = privacy_phase(dev, cfg, fed_ds)
+    for k in kernels:                  # this path's launches beside the main
+        k["launches_phase17"] = record["privacy"]["launches"].get(k["name"], 0)
+    lap("DP and privacy")
     record["phase_s"] = phase_s
     print(f"phase seconds {phase_s}")
 

@@ -15,9 +15,12 @@ merge (:func:`repro_torch.core.aggregation.weighted_average`, plain torch
 ops).  Both honour the degraded-mode options (a ``FaultPlan``, the update
 guard, partial participation, FedProx), checkpoint every stretch, resume
 from the latest checkpoint, and retry a stretch whose merged model went
-non-finite with its suspects blocked.  Bytes on the wire come from
-:mod:`.comm_model`.  ``dp``, ``trace`` and ``client_chunk`` are not
-ported; they raise ``NotImplementedError`` naming their ROADMAP entry.
+non-finite with its suspects blocked.  ``dp`` makes every local step
+DP-SGD (:mod:`repro_torch.gan.dp`) and ``trace`` records what the
+federation transmits (:class:`repro_torch.privacy.RoundTrace`), under
+both programs.  Bytes on the wire come from :mod:`.comm_model`.
+``client_chunk`` is not ported; it raises ``NotImplementedError`` naming
+its ROADMAP entry.
 
 Every random stream is seeded from ``seed`` and the stream's index
 (:func:`repro_torch.device.seeded_generator`): each round's participation
@@ -39,12 +42,15 @@ from ..device import resolve_device, seeded_generator
 from ..fed.faults import (DEFAULT_NORM_MULT, FaultPlan, PoisonedRunError,
                           UpdateGuard, apply_faults_tree, guard_ok,
                           no_faults, sanitize_stacked, update_diagnostics)
-from ..fed.merge import replicate
+from ..fed.merge import flatten_stacked, replicate
 from ..fed.program import FederatedProgram
 from ..fed.setup import CLIENT_RNG, ENCODE, INIT, MODEL, setup_federation
 from ..gan.ctgan import (CTGANConfig, Generator, apply_activations_fused,
                          conditional_loss, gradient_penalty)
-from ..gan.trainer import GANState, StepNoise, draw_step_noise, init_gan_state
+from ..gan.dp import DPConfig
+from ..gan.trainer import (GANState, StepNoise, critic_grads, draw_step_noise,
+                           init_gan_state)
+from ..interop import flat_to_reference, gan_flat_index
 from ..optim import AdamState, adam
 from ..synth import (DeviceSampler, RoundEngine, SamplerDraws, SamplerTables,
                      draw_batch, synthesize_table)
@@ -60,8 +66,7 @@ from .fedavg import sample_participation
 EVAL_STREAM = 999
 PARTICIPATION_STREAM = 777
 
-# the ROADMAP entries of the options still to port
-_PRIVACY = "DP and privacy"
+# the ROADMAP entry of the option still to port
 _SCALE = "client_chunk, tile_federation, scenarios and sharded"
 
 # run_federated's guard default: UpdateGuard() when a FaultPlan is given
@@ -80,7 +85,11 @@ class FedRunResult:
     comm_bytes_per_round: float    # per epoch for MD-TGAN
     retries: int = 0               # poisoned stretches re-run
     blocked: np.ndarray | None = None   # (P,) retry blocklist at exit
-    epsilon: float | None = None   # DP budget spent (None: DP not ported)
+    epsilon: float | None = None   # DP (eps, delta) spent per client over
+                                   # the run, at the smallest client (None
+                                   # without dp=; inf when the batch exceeds
+                                   # that client's rows, where the
+                                   # subsampling estimate is undefined)
 
 
 def _evaluate(gen: Generator, cfg: CTGANConfig, enc: TableEncoders,
@@ -128,7 +137,8 @@ def run_federated(client_data: Sequence[np.ndarray],
                   client_chunk: int | None = None,
                   edges: int | None = None, ckpt_dir: str | None = None,
                   resume: bool = False, max_retries: int = 2,
-                  retry_backoff: float = 0.0, dp=None, trace=None,
+                  retry_backoff: float = 0.0, dp: DPConfig | None = None,
+                  trace=None,
                   on_round: Callable | None = None,
                   device: torch.device | str = "cuda") -> FedRunResult:
     """Fed-TGAN (``weighting="fedtgan"``), vanilla FL (``"uniform"``) or
@@ -166,14 +176,23 @@ def run_federated(client_data: Sequence[np.ndarray],
     round blocked; past ``max_retries`` such stretches
     :class:`~repro_torch.fed.faults.PoisonedRunError` is raised.
     ``retry_backoff`` sleeps ``retry_backoff * attempt`` seconds before
-    each re-run."""
-    for option, given, entry in (
-            ("dp", dp is not None, _PRIVACY),
-            ("trace", trace is not None, _PRIVACY),
-            ("client_chunk", client_chunk is not None, _SCALE)):
-        if given:
-            raise NotImplementedError(f"run_federated: {option} is not "
-                                      f"ported yet (ROADMAP: {entry})")
+    each re-run.
+
+    Privacy:
+
+    ``dp`` -- a :class:`~repro_torch.gan.dp.DPConfig`: every client's
+    critic step becomes DP-SGD (per-pack clip and Gaussian noise); the
+    round still merges in one launch.  ``epsilon`` reports the
+    strong-composition estimate at the smallest client (``inf`` when the
+    batch exceeds its rows).
+    ``trace`` -- a :class:`repro_torch.privacy.RoundTrace` that records the
+    §4.1 setup statistics and every round's transmitted ``(P, D)`` stack
+    in the reference's layout, under both programs (bit-identical to an
+    untraced run); not with faults, a guard or partial participation (a
+    masked round's wire is not the dense stack it records)."""
+    if client_chunk is not None:
+        raise NotImplementedError(f"run_federated: client_chunk is not "
+                                  f"ported yet (ROADMAP: {_SCALE})")
     if program not in ("fed", "host"):
         raise ValueError(f"unknown program {program!r}; options: fed, host")
     if edges is not None and program != "fed":
@@ -184,6 +203,10 @@ def run_federated(client_data: Sequence[np.ndarray],
     if guard is _AUTO_GUARD:
         guard = UpdateGuard() if faults is not None else None
     use_faulted = faults is not None or guard is not None or participation < 1
+    if trace is not None and use_faulted:
+        raise ValueError("trace= records the dense transmitted stack; it "
+                         "cannot be combined with faults/guard/partial "
+                         "participation (the degraded path masks the wire)")
     if use_faulted and faults is None:
         faults = no_faults(rounds, P)
     if faults is not None:
@@ -195,10 +218,23 @@ def run_federated(client_data: Sequence[np.ndarray],
     dev = resolve_device(device)
     fe = setup_federation(client_data, schema, cfg, seed, weighting,
                           device=dev)
+    layout = None
+    if trace is not None:
+        trace.record_setup(fe)
+        trace.meta.setdefault("program", program)
+        trace.meta.setdefault("seed", seed)
+        trace.meta.setdefault("dp", dp is not None)
+        layout = gan_flat_index(fe.states[0].gen, fe.states[0].disc)
     prog = FederatedProgram(cfg, fe.spans, fe.cond_spans,
                             batch=cfg.batch_size, local_steps=local_steps,
                             weighting=weighting, participation=participation,
-                            fedprox_mu=fedprox_mu, guard=guard, n_edges=edges)
+                            fedprox_mu=fedprox_mu, guard=guard, n_edges=edges,
+                            dp=dp)
+    epsilon = None
+    if dp is not None:
+        n_min = int(torch.min(fe.n_rows))
+        epsilon = (dp.epsilon(rounds * local_steps, cfg.batch_size, n_min)
+                   if cfg.batch_size <= n_min else float("inf"))
     bytes_round = comm_model.fl_bytes_per_round(
         P, comm_model.param_bytes(fe.states[0].params()))
     w = fe.weights
@@ -216,12 +252,18 @@ def run_federated(client_data: Sequence[np.ndarray],
         return [seeded_generator(dev, seed, PARTICIPATION_STREAM, r)
                 for r in range(start, stop + 1)]
 
-    def host_round(states, fault, rng):
-        """The oracle round: local rounds, then the per-leaf merge; under
-        a fault slice the same degraded math as ``faulted_round``."""
+    def record(r, flat):
+        trace.record_round(r, flat_to_reference(flat, layout).cpu().numpy())
+
+    def host_round(states, fault, rng, r):
+        """The oracle round: local rounds, then the per-leaf merge (the
+        transmitted stack recorded first when tracing); under a fault
+        slice the same degraded math as ``faulted_round``."""
         trees = [s.params() for s in states]
         if fault is None:
             states, m = prog.clients(states, fe.tables)
+            if trace is not None:
+                record(r, flatten_stacked(trees))
             replicate(weighted_average(_stacked_leaves(states), w), trees)
             return states, m
         participate = fault.participate.to(dev)
@@ -265,10 +307,16 @@ def run_federated(client_data: Sequence[np.ndarray],
                 fault = (None if plan is None else
                          FaultPlan(*(leaf[i] for leaf in plan)))
                 states, m = host_round(states, fault,
-                                       None if rngs is None else rngs[i])
+                                       None if rngs is None else rngs[i],
+                                       start + i)
                 hook(i, states, m)
                 out.append(m)
             metrics = _stack(out)
+        elif plan is None and trace is not None:
+            states, metrics, arts = prog.run_traced(
+                states, fe.tables, fe.S, fe.n_rows, n, on_round=hook)
+            for i, flat in enumerate(arts["updates"]):
+                record(start + i, flat)
         elif plan is None:
             states, metrics = prog.run(states, fe.tables, fe.S, fe.n_rows, n,
                                        on_round=hook)
@@ -339,7 +387,8 @@ def run_federated(client_data: Sequence[np.ndarray],
     return FedRunResult(name or f"fed-{weighting}", w.cpu().numpy(), history,
                         fe.enc, states[0].gen, time.perf_counter() - t0,
                         bytes_round, retries=retries,
-                        blocked=blocked if use_faulted else None)
+                        blocked=blocked if use_faulted else None,
+                        epsilon=epsilon)
 
 
 def run_centralized(data: np.ndarray, schema: Sequence[ColumnSpec], *,
@@ -432,12 +481,13 @@ def make_md_step(cfg: CTGANConfig, spans: Sequence[SpanInfo],
                                                nz.u_d, cfg.tau)
             fake_in = torch.cat([fake, cond], dim=1)
             real_in = torch.cat([real, cond], dim=1)
-            d_loss = (torch.mean(st.disc(fake_in, keep=nz.keep_d_fake))
-                      - torch.mean(st.disc(real_in, keep=nz.keep_d_real))
-                      + cfg.gp_lambda * gradient_penalty(st.disc, real_in,
-                                                         fake_in, nz.gp_eps))
+            wgan = (torch.mean(st.disc(fake_in, keep=nz.keep_d_fake))
+                    - torch.mean(st.disc(real_in, keep=nz.keep_d_real)))
+            pen = cfg.gp_lambda * gradient_penalty(st.disc, real_in, fake_in,
+                                                   nz.gp_eps)
+            d_loss = wgan + pen
             d_params = list(st.disc.parameters())
-            st.d_opt = opt.update(torch.autograd.grad(d_loss, d_params),
+            st.d_opt = opt.update(critic_grads(wgan, pen, d_params),
                                   st.d_opt, d_params)
             d_losses.append(d_loss.detach())
 

@@ -15,9 +15,17 @@ update guard, and the masked, renormalized merge in the same single
 ``fedprox_mu > 0`` pulls every local step toward the round's global
 parameters (:func:`repro_torch.core.fedavg.fedprox_wrap`).
 
+``dp`` (a :class:`~repro_torch.gan.dp.DPConfig`) makes every local step
+DP-SGD (per-pack clip and Gaussian noise, :mod:`repro_torch.gan.dp`); the
+round keeps its single merge launch, and FedProx wraps the DP step.
+``traced_round`` / ``run_traced`` are the dense round that also returns
+the transmitted ``(P, D)`` stack the merge read, for the privacy
+recorder (:mod:`repro_torch.privacy`); the merge math is the same, so a
+traced round is bit-identical to an untraced one.
+
 The reference lowers a round into one XLA program; here a round is a
 sequence of launches on one stream with no host wait in it (metrics stay
-on the device).  The traced and DP renderings are not ported (ROADMAP).
+on the device).
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ from ..core.fedavg import fedprox_wrap, sample_participation
 from ..core.weighting import (quantity_only_weights, uniform_weights,
                               weights_from_divergence)
 from ..gan.ctgan import CTGANConfig
-from ..gan.trainer import GANState, StepNoise, make_train_steps
+from ..gan.dp import DPConfig
+from ..gan.trainer import GANState, StepNoise
 from ..kernels import ops
 from ..synth import RoundEngine, SamplerDraws, SamplerTables
 from ..synth.engine import _stack
@@ -65,7 +74,7 @@ class FederatedProgram:
                  local_steps: int, weighting: str = "fedtgan",
                  participation: float = 1.0, fedprox_mu: float = 0.0,
                  guard: UpdateGuard | None = None,
-                 n_edges: int | None = None):
+                 n_edges: int | None = None, dp: DPConfig | None = None):
         if weighting not in WEIGHTINGS:
             raise ValueError(f"unknown weighting {weighting!r}; "
                              f"options: {WEIGHTINGS}")
@@ -80,28 +89,33 @@ class FederatedProgram:
         self.fedprox_mu = float(fedprox_mu)
         self.guard = guard
         self.n_edges = n_edges
-        step_fn = None
-        if self.fedprox_mu > 0:
-            step_fn = fedprox_wrap(make_train_steps(cfg, tuple(spans),
-                                                    tuple(cond_spans)),
-                                   self.fedprox_mu)
         self.engine = RoundEngine(cfg, tuple(spans), tuple(cond_spans),
-                                  batch=batch, local_steps=local_steps,
-                                  step_fn=step_fn)
+                                  batch=batch, local_steps=local_steps, dp=dp)
+        if self.fedprox_mu > 0:
+            self.engine.step_fn = fedprox_wrap(self.engine.step_fn,
+                                               self.fedprox_mu)
 
     def _merge_flat(self, flat: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if self.n_edges is None:
             return ops.weighted_average_flat(flat, w)
         return tiered_weighted_merge_flat(flat, w, self.n_edges)
 
+    def _merge(self, states: Sequence[GANState],
+               w: torch.Tensor) -> torch.Tensor:
+        """Flatten every client's generator and critic parameters into the
+        ``(P, D)`` stack, merge it in ONE ``weighted_agg`` dispatch (one
+        per tier with ``n_edges``) and copy the result back into every
+        client.  Returns the stack (the transmitted artifact)."""
+        trees = [s.params() for s in states]
+        flat = flatten_stacked(trees)
+        replicate(unflatten_merged(self._merge_flat(flat, w), trees[0]),
+                  trees)
+        return flat
+
     def merge_states(self, states: Sequence[GANState],
                      w: torch.Tensor) -> Sequence[GANState]:
-        """Federator merge and redistribution: every client's generator and
-        critic parameters in ONE ``weighted_agg`` dispatch (one per tier
-        with ``n_edges``), then copied back into every client."""
-        trees = [s.params() for s in states]
-        merged = self._merge_flat(flatten_stacked(trees), w)
-        replicate(unflatten_merged(merged, trees[0]), trees)
+        """Federator merge and redistribution (:meth:`_merge`)."""
+        self._merge(states, w)
         return states
 
     def clients(self, states: Sequence[GANState],
@@ -121,9 +135,8 @@ class FederatedProgram:
         """One global round given resolved weights; ``draws`` and ``noise``
         inject every client's draws (see :meth:`RoundEngine.
         clients_round`).  Returns (states, metrics (clients, steps))."""
-        states, metrics = self.clients(states, tables, draws=draws,
-                                       noise=noise)
-        return self.merge_states(states, w), metrics
+        return self.traced_round(states, tables, w, draws=draws,
+                                 noise=noise)[:2]
 
     def global_round(self, states: Sequence[GANState],
                      tables: Sequence[SamplerTables], S: torch.Tensor,
@@ -139,14 +152,46 @@ class FederatedProgram:
         """``rounds`` global rounds, the weights resolved once.
         ``on_round(r, states, metrics)`` is called after round r's merge.
         Returns (states, metrics stacked (rounds, clients, steps))."""
+        return self._rounds(states, tables, S, n_rows, rounds, on_round,
+                            keep=False)[:2]
+
+    def traced_round(self, states: Sequence[GANState],
+                     tables: Sequence[SamplerTables], w: torch.Tensor, *,
+                     draws: Sequence[SamplerDraws] | None = None,
+                     noise: Sequence[Sequence] | None = None):
+        """One global round that also returns its transmitted artifact:
+        the flat ``(P, D)`` post-local-training stack the merge reads
+        (port layout: :func:`repro_torch.interop.flat_to_reference` maps it
+        to the reference's), what an honest-but-curious federator
+        observes.  :meth:`weighted_round` is this round without the
+        stack, so a traced round is bit-identical to an untraced one.
+        Returns (states, metrics, flat)."""
+        states, metrics = self.clients(states, tables, draws=draws,
+                                       noise=noise)
+        return states, metrics, self._merge(states, w)
+
+    def run_traced(self, states: Sequence[GANState],
+                   tables: Sequence[SamplerTables], S: torch.Tensor,
+                   n_rows: torch.Tensor, rounds: int, *,
+                   on_round: Callable | None = None):
+        """:meth:`run` keeping every round's stack.  Returns (states,
+        metrics stacked (rounds, clients, steps), ``{"updates": [(P, D)
+        per round], "weights": w}``)."""
+        return self._rounds(states, tables, S, n_rows, rounds, on_round,
+                            keep=True)
+
+    def _rounds(self, states, tables, S, n_rows, rounds, on_round, *,
+                keep: bool):
         w = resolve_weights(self.weighting, S, n_rows)
-        out = []
+        out, flats = [], []
         for r in range(rounds):
-            states, m = self.weighted_round(states, tables, w)
+            states, m, flat = self.traced_round(states, tables, w)
             if on_round is not None:
                 on_round(r, states, m)
             out.append(m)
-        return states, _stack(out)
+            if keep:
+                flats.append(flat)
+        return states, _stack(out), {"updates": flats, "weights": w}
 
     def faulted_round(self, states: Sequence[GANState],
                       tables: Sequence[SamplerTables], w: torch.Tensor,

@@ -14,7 +14,9 @@ statistics instead and give other tables.  Linear weights are stored in
 concatenated into one input, then Linear -> LeakyReLU(0.2) -> dropout per
 hidden layer and a Linear to one score.  Dropout is written as the
 reference writes it, ``where(keep, h / (1 - p), 0)``, and its keep masks
-can be injected.
+can be injected.  ``critic_call`` and ``gradient_penalty_func`` are the
+critic and its penalty in the functional form that ``torch.func``
+transforms differentiate (the DP step's per-pack gradients).
 """
 from __future__ import annotations
 
@@ -185,6 +187,34 @@ def gradient_penalty(disc: Discriminator, real: torch.Tensor,
         score = torch.sum(disc(inter, train=False))
         (g,) = torch.autograd.grad(score, inter, create_graph=True)
     g = g.reshape(b, -1)
+    gn = torch.sqrt(torch.sum(g * g, dim=1) + 1e-12)
+    return torch.mean((gn - 1.0) ** 2)
+
+
+def critic_call(disc: Discriminator, params: dict, x: torch.Tensor,
+                **kw) -> torch.Tensor:
+    """``disc(x, **kw)`` computed with ``params`` (parameter name ->
+    tensor) in place of the critic's own: the functional form that
+    ``torch.func`` transforms differentiate."""
+    return torch.func.functional_call(disc, params, (x,), kw)
+
+
+def gradient_penalty_func(disc: Discriminator, params: dict,
+                          real: torch.Tensor, fake: torch.Tensor,
+                          eps: torch.Tensor) -> torch.Tensor:
+    """:func:`gradient_penalty` for ``torch.func``: the critic runs with
+    ``params`` (:func:`critic_call`) and the input gradient comes from
+    ``torch.func.grad`` (the transforms refuse ``torch.autograd.grad``),
+    so that ``torch.func.grad`` over ``params`` reaches through it.
+    ``eps`` (B/pac, 1, 1) is given."""
+    b = real.shape[0] // disc.pac
+    r = real.reshape(b, disc.pac, -1)
+    f = fake.reshape(b, disc.pac, -1)
+    inter = (eps * r + (1 - eps) * f).reshape(real.shape)
+
+    def score(x):
+        return torch.sum(critic_call(disc, params, x, train=False))
+    g = torch.func.grad(score)(inter).reshape(b, -1)
     gn = torch.sqrt(torch.sum(g * g, dim=1) + 1e-12)
     return torch.mean((gn - 1.0) ** 2)
 

@@ -108,6 +108,42 @@ def draw_step_noise(rng: torch.Generator, cfg: CTGANConfig,
     return StepNoise(z_d, u_d, keep_fake, keep_real, gp_eps, z_g, u_g, keep())
 
 
+def generator_step(state: GANState, opt, cfg: CTGANConfig,
+                   spans: Sequence[SpanInfo], cond_spans: Sequence[SpanInfo],
+                   cond: torch.Tensor, mask: torch.Tensor, noise
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The generator's half of a step, in place: ``-mean(critic(fake)) +
+    conditional_loss`` against the critic as it stands, one Adam update
+    of ``state.gen``; ``noise`` supplies ``z_g``, ``u_g`` and ``keep_g``.
+    Returns (g_loss, ce), detached."""
+    gen, disc = state.gen, state.disc
+    logits = gen(noise.z_g, cond)
+    fake = apply_activations_fused(logits, spans, noise.u_g, cfg.tau)
+    y_fake = disc(torch.cat([fake, cond], dim=1), keep=noise.keep_g)
+    ce = conditional_loss(logits, cond, mask, cond_spans)
+    g_loss = -torch.mean(y_fake) + ce
+    g_params = list(gen.parameters())
+    g_grads = torch.autograd.grad(g_loss, g_params)
+    state.g_opt = opt.update(g_grads, state.g_opt, g_params)
+    return g_loss.detach(), ce.detach()
+
+
+def critic_grads(wgan: torch.Tensor, pen: torch.Tensor,
+                 params: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The critic's gradient: the WGAN term's and the penalty's apart, then
+    summed.  One autograd call over both would add each weight's
+    contributions in the order the engine runs its nodes; on the card the
+    penalty's nodes are created on the engine's device thread, numbered
+    from that thread's own counter, so the order (and the gradient's
+    rounding) would depend on what the process ran before.  Apart, each
+    weight gets one contribution from the WGAN term's two critic passes in
+    a fixed order, and from the penalty one plus exact zeros.  A weight
+    the penalty does not reach gets zeros."""
+    g_wgan = torch.autograd.grad(wgan, params)
+    g_pen = torch.autograd.grad(pen, params, allow_unused=True)
+    return [a if b is None else a + b for a, b in zip(g_wgan, g_pen)]
+
+
 def make_train_steps(cfg: CTGANConfig, spans: Sequence[SpanInfo],
                      cond_spans: Sequence[SpanInfo]):
     """Returns ``step(state, batch, noise=None) -> metrics``: one critic and
@@ -136,23 +172,18 @@ def make_train_steps(cfg: CTGANConfig, spans: Sequence[SpanInfo],
         y_real = disc(real_in, keep=noise.keep_d_real)
         gp = gradient_penalty(disc, real_in, fake_in, noise.gp_eps)
         wgan = torch.mean(y_fake) - torch.mean(y_real)
-        d_loss = wgan + cfg.gp_lambda * gp
+        pen = cfg.gp_lambda * gp
+        d_loss = wgan + pen
         d_params = list(disc.parameters())
-        d_grads = torch.autograd.grad(d_loss, d_params)
+        d_grads = critic_grads(wgan, pen, d_params)
         state.d_opt = opt.update(d_grads, state.d_opt, d_params)
 
         # generator, against the critic just updated
-        logits = gen(noise.z_g, cond)
-        fake = apply_activations_fused(logits, spans, noise.u_g, cfg.tau)
-        y_fake = disc(torch.cat([fake, cond], dim=1), keep=noise.keep_g)
-        ce = conditional_loss(logits, cond, mask, cond_spans)
-        g_loss = -torch.mean(y_fake) + ce
-        g_params = list(gen.parameters())
-        g_grads = torch.autograd.grad(g_loss, g_params)
-        state.g_opt = opt.update(g_grads, state.g_opt, g_params)
+        g_loss, ce = generator_step(state, opt, cfg, spans, cond_spans,
+                                    cond, mask, noise)
         state.step += 1
-        return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                "wgan": wgan.detach(), "gp": gp.detach(), "ce": ce.detach()}
+        return {"d_loss": d_loss.detach(), "g_loss": g_loss,
+                "wgan": wgan.detach(), "gp": gp.detach(), "ce": ce}
 
     return step
 

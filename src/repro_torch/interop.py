@@ -24,7 +24,10 @@ dict; ``lm_train_state_from_reference`` takes a flattened ``TrainState``
 reference's ``Transformer.prefill`` or ``init_caches`` (``pos0/.C``,
 ``pos1/.h``, ``pos0/.k``, ``pos0/.length``, ..., each with a leading
 ``n_rep`` axis) and returns the port's cache list.  With these, the two
-packages compute from the same state.
+packages compute from the same state.  ``gan_flat_index`` maps the flat
+``(P, D)`` update stack that the port's merge reads to the reference's
+layout and back (``flat_to_reference``, ``flat_from_reference``), so that
+a privacy trace recorded by either package replays in the other.
 """
 from __future__ import annotations
 
@@ -143,6 +146,44 @@ def gan_state_from_reference(flat: Mapping[str, np.ndarray],
         _adam_from_reference(flat, ".d_opt", _layout(disc)),
         int(np.asarray(flat[".step"])),
         rng if rng is not None else torch.Generator(device=dev))
+
+
+def gan_flat_index(gen: Generator, disc: Discriminator) -> np.ndarray:
+    """The map between the two packages' flat update stacks of one model:
+    ``reference = port[..., index]``.
+
+    The port flattens :meth:`GANState.params` (generator then critic, in
+    ``parameters()`` order, torch's ``(out, in)`` weights); the reference
+    flattens ``{"g": g_params, "d": d_params}`` with ``jax.tree``, which
+    sorts dict keys at every level (so the critic comes first, ``fc0/b``
+    before ``fc0/w``) and keeps each ``(fan_in, fan_out)`` weight
+    row-major."""
+    entries, off = [], 0
+    for prefix, module in (("g", gen), ("d", disc)):
+        for param, key, transposed in _layout(module):
+            n = param.numel()
+            idx = np.arange(off, off + n, dtype=np.int64).reshape(param.shape)
+            entries.append(((prefix, *key.split("/")),
+                            (idx.T if transposed else idx).reshape(-1)))
+            off += n
+    return np.concatenate([idx for _, idx in sorted(entries,
+                                                    key=lambda e: e[0])])
+
+
+def flat_to_reference(flat, index: np.ndarray):
+    """Port-layout flat parameters (``(..., D)``, numpy or torch) in the
+    reference's layout (:func:`gan_flat_index`)."""
+    if isinstance(flat, torch.Tensor):
+        return flat.index_select(-1, torch.as_tensor(index,
+                                                     device=flat.device))
+    return np.asarray(flat)[..., index]
+
+
+def flat_from_reference(flat, index: np.ndarray):
+    """Inverse of :func:`flat_to_reference`."""
+    inverse = np.empty_like(index)
+    inverse[index] = np.arange(index.shape[0], dtype=index.dtype)
+    return flat_to_reference(flat, inverse)
 
 
 def encoders_from_reference(schema: Sequence,

@@ -6,7 +6,8 @@ Two modes:
 * ``--federated``: Fed-TGAN rounds over P simulated clients: the §4.2
   weights from token-frequency statistics, local Adam steps on every
   client, and the weighted merge of the parameters in one ``weighted_agg``
-  launch per round;
+  launch per round (``--dp-noise``: client-level DP-FedAvg, each client's
+  delta clipped and the merged delta noised, in the same launch);
 * default: plain training on one stream (the "centralized" reference in
   federated terms).
 
@@ -34,8 +35,11 @@ from ..configs import ARCH_NAMES, get_config, get_smoke_config
 from ..data.tokens import (TokenDatasetSpec, client_token_streams,
                            fed_weights_from_token_stats,
                            synthetic_token_batches, token_frequency_stats)
-from ..device import resolve_device
-from ..fed.merge import fused_weighted_merge, replicate
+from ..device import resolve_device, seeded_generator
+from ..fed.merge import (flatten_stacked, fused_weighted_merge, replicate,
+                         unflatten_merged)
+from ..gan.dp import DPConfig
+from ..kernels import ops
 from ..models import (TrainState, Transformer, make_train_step, tree_leaves,
                       tree_unflatten)
 from ..optim import adam, cosine_schedule
@@ -79,21 +83,56 @@ def run_centralized(cfg, *, steps, batch, seq, lr, seed=0, log_every=5,
     return state, hist
 
 
-def federated_round(states: list, step_fn, tokens,
-                    weights: torch.Tensor) -> torch.Tensor:
+# the seed stream of the client-level DP noise, one generator per round
+DP_STREAM = 555
+
+
+def dp_merge(flat: torch.Tensor, start: torch.Tensor, weights: torch.Tensor,
+             dp: DPConfig, noise: torch.Tensor) -> torch.Tensor:
+    """DP-FedAvg's merge of the ``(P, D)`` float32 stack of the clients'
+    parameters after local training (overwritten): each row's delta from
+    the round's ``start`` (D,) clipped to global L2 norm ``dp.l2_clip``
+    (``min(1, clip / sqrt(sum d^2 + 1e-12))``), the weighted mean of the
+    clipped deltas in ONE ``weighted_agg`` launch, ``noise`` (D,) standard
+    normal times ``dp.noise_mult * dp.l2_clip / P`` added, and the start
+    added back.  Returns the merged (D,) parameters."""
+    deltas = flat.sub_(start)
+    gn = torch.sqrt(torch.sum(deltas * deltas, dim=1) + 1e-12)
+    deltas.mul_(torch.clamp(dp.l2_clip / gn, max=1.0)[:, None])
+    mean = ops.weighted_average_flat(deltas, weights)
+    sigma = dp.noise_mult * dp.l2_clip / flat.shape[0]
+    return start + (mean + sigma * noise)
+
+
+def federated_round(states: list, step_fn, tokens, weights: torch.Tensor, *,
+                    dp: DPConfig | None = None,
+                    dp_noise: torch.Tensor | None = None,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
     """One global round in place: client i takes one step of ``step_fn``
     on each of its ``tokens[i]`` (local_steps, B, S) batches, then every
     client's parameters are replaced by the weighted merge (ONE
-    ``weighted_agg`` launch).  Returns the (P, local_steps) losses, on the
+    ``weighted_agg`` launch).  With ``dp`` the merge is :func:`dp_merge`
+    from client 0's parameters before the round (the broadcast model
+    every client starts from); its (D,) noise is ``dp_noise`` or drawn
+    from ``generator``.  Returns the (P, local_steps) losses, on the
     device."""
     dev = weights.device
+    start = None
+    if dp is not None:
+        start = flatten_stacked([tree_leaves(states[0].params)])[0]
     losses = torch.empty((len(states), len(tokens[0])), device=dev)
     for i in range(len(states)):
         for e, tk in enumerate(tokens[i]):
             states[i], m = step_fn(states[i], _batch_dict(tk, dev))
             losses[i, e] = m["loss"]
     trees = [tree_leaves(st.params) for st in states]
-    replicate(fused_weighted_merge(trees, weights), trees)
+    if dp is None:
+        replicate(fused_weighted_merge(trees, weights), trees)
+        return losses
+    if dp_noise is None:
+        dp_noise = torch.randn(start.shape, generator=generator, device=dev)
+    merged = dp_merge(flatten_stacked(trees), start, weights, dp, dp_noise)
+    replicate(unflatten_merged(merged, trees[0]), trees)
     return losses
 
 
@@ -113,15 +152,18 @@ def run_federated(cfg, *, clients, rounds, local_steps, batch, seq, lr,
     launch over the flattened float32 stack of all clients, and the merged
     values, rounded to each parameter's dtype, go to every client.
 
+    ``dp`` (a :class:`~repro_torch.gan.dp.DPConfig`) switches the merge
+    to DP-FedAvg (:func:`dp_merge`): client-level DP on the wire, the LM
+    counterpart of the tabular per-pack DP-SGD; round r's noise is drawn
+    from its own generator (seed, ``DP_STREAM``, r), and the spent
+    (eps, delta) is printed at the end (every client takes part in every
+    round: q = 1, one release a round).
+
     Clients run one after another on ``device``.  ``init_params`` replaces
     the seeded initialization (a test hands in the reference's);
     ``on_round(r, states, metrics)`` sees every round after its merge,
     ``metrics["loss"]`` a (P, local_steps) tensor.  Returns (states,
     history, weights)."""
-    if dp is not None:
-        raise NotImplementedError(
-            "dp: client-level DP for the merge needs gan/dp.py, which is "
-            "not ported yet (ROADMAP queue 1, DP and privacy)")
     if weighting not in ("fedtgan", "uniform"):
         raise ValueError(f"weighting {weighting!r}: 'fedtgan' or 'uniform'")
     dev = resolve_device(device)
@@ -155,13 +197,20 @@ def run_federated(cfg, *, clients, rounds, local_steps, batch, seq, lr,
     t0 = time.perf_counter()
     for r in range(rounds):
         toks = [s[r * local_steps:(r + 1) * local_steps] for s in streams]
-        losses = federated_round(states, step_fn, toks, w_dev)
+        losses = federated_round(
+            states, step_fn, toks, w_dev, dp=dp,
+            generator=None if dp is None else seeded_generator(
+                dev, seed, DP_STREAM, r))
         loss = float(torch.mean(losses))
         hist.append({"round": r + 1, "loss": loss,
                      "t": time.perf_counter() - t0})
         print(f"round {r + 1:4d} mean-loss {loss:.4f}")
         if on_round is not None:
             on_round(r, states, {"loss": losses})
+    if dp is not None:
+        eps = dp.epsilon(rounds, clients, clients)
+        print(f"client-level DP: clip {dp.l2_clip} noise {dp.noise_mult} "
+              f"-> eps ~= {eps:.3g} (delta {dp.delta})")
     return states, hist, w.numpy()
 
 
@@ -181,7 +230,7 @@ def main(argv=None):
     ap.add_argument("--uniform-weights", action="store_true")
     ap.add_argument("--dp-noise", type=float, default=None,
                     help="client-level DP noise multiplier for the "
-                         "federated merge (not ported yet: raises)")
+                         "federated merge (off when unset)")
     ap.add_argument("--dp-clip", type=float, default=1.0,
                     help="per-client update L2 clip for --dp-noise")
     ap.add_argument("--device", default="cuda",
@@ -189,16 +238,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    dp = args.dp_noise
+    dp = (None if args.dp_noise is None else
+          DPConfig(l2_clip=args.dp_clip, noise_mult=args.dp_noise))
     if args.federated:
         run_federated(cfg, clients=args.clients, rounds=args.rounds,
                       local_steps=args.local_steps, batch=args.batch,
                       seq=args.seq, lr=args.lr, iid=not args.non_iid,
                       weighting="uniform" if args.uniform_weights else "fedtgan",
                       dp=dp, device=args.device)
-    else:
-        if dp is not None:
-            raise NotImplementedError("--dp-noise applies to --federated")
+    else:       # as the reference, --dp-noise has no effect here
         run_centralized(cfg, steps=args.steps, batch=args.batch,
                         seq=args.seq, lr=args.lr, device=args.device)
 

@@ -9,7 +9,9 @@ cannot trace a ctypes launch); ``run_round`` and ``run`` are the
 single-client entry points (one round; many rounds in turn).  A prebuilt
 ``step_fn`` replaces the train step, and a round-constant ``aux`` is
 handed to every step: the hooks FedProx uses
-(:func:`repro_torch.core.fedavg.fedprox_wrap`).
+(:func:`repro_torch.core.fedavg.fedprox_wrap`).  ``dp=`` swaps in the
+DP-SGD step (:mod:`repro_torch.gan.dp`); its per-step noise is a
+:class:`~repro_torch.gan.dp.DPStepNoise`.
 
 ``sample_synthetic_conditional`` is CTGAN's conditional sampling mode (the
 condition vectors follow the table's training-by-sampling marginals);
@@ -24,6 +26,7 @@ import torch
 
 from ..device import resolve_device
 from ..gan.ctgan import CTGANConfig, Generator, apply_activations_fused
+from ..gan.dp import make_dp_train_steps
 from ..gan.trainer import (GANState, StepNoise, make_train_steps,
                            sample_synthetic)
 from ..tabular.encoders import SpanInfo, TableEncoders
@@ -36,14 +39,24 @@ class RoundEngine:
 
     def __init__(self, cfg: CTGANConfig, spans: Sequence[SpanInfo],
                  cond_spans: Sequence[SpanInfo], *, batch: int,
-                 local_steps: int, step_fn: Callable | None = None):
+                 local_steps: int, step_fn: Callable | None = None,
+                 dp=None):
         """``step_fn(state, batch, noise)`` replaces the train step of
         :func:`repro_torch.gan.trainer.make_train_steps` (FedProx wraps
-        it)."""
+        it).  ``dp`` (a :class:`repro_torch.gan.dp.DPConfig`) makes it the
+        DP-SGD step of :func:`repro_torch.gan.dp.make_dp_train_steps`;
+        it excludes ``step_fn``."""
+        if dp is not None and step_fn is not None:
+            raise ValueError("pass either a prebuilt step_fn or dp=, not "
+                             "both (the DP config builds the step)")
         self.cfg = cfg
         self.batch = int(batch)
         self.local_steps = int(local_steps)
         self.cond_dim = sum(s.width for s in cond_spans)
+        if dp is not None:
+            step_fn = make_dp_train_steps(cfg, tuple(spans), tuple(cond_spans),
+                                          l2_clip=dp.l2_clip,
+                                          noise_mult=dp.noise_mult)
         self.step_fn = step_fn or make_train_steps(cfg, tuple(spans),
                                                    tuple(cond_spans))
 

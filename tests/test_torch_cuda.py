@@ -556,3 +556,179 @@ def test_xlstm_prefill_on_the_card_matches_the_cpu(cuda):
     assert dict(d) == {"mlstm_chunk": 2}
     torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(n_card.cpu(), n_cpu, rtol=1e-4, atol=1e-4)
+
+
+def _dp_setup(device, n_rows=1200):
+    """A small adult table's encoders, sampler tables and one state, all
+    on the CPU and on ``device``."""
+    import copy
+
+    from repro_torch.gan.ctgan import CTGANConfig
+    from repro_torch.gan.trainer import GANState, init_gan_state
+    from repro_torch.optim import AdamState
+    from repro_torch.synth import DeviceSampler
+    from repro_torch.tabular import fit_centralized_encoders, make_dataset
+
+    cpu = torch.device("cpu")
+    cfg = CTGANConfig(z_dim=16, gen_hidden=(32, 32), disc_hidden=(32, 32),
+                      pac=4, batch_size=64)
+    ds = make_dataset("adult", n_rows=n_rows, seed=3)
+    enc = fit_centralized_encoders(ds.data, ds.schema, device=cpu,
+                                   generator=torch.Generator().manual_seed(3))
+    encoded = enc.encode(ds.data,
+                         generator=torch.Generator().manual_seed(4)).numpy()
+    tables = {d: DeviceSampler(encoded, enc, d).tables for d in (cpu, device)}
+    st = init_gan_state(cfg, enc.cond_dim, enc.encoded_dim, device=cpu,
+                        generator=torch.Generator().manual_seed(5),
+                        rng=torch.Generator().manual_seed(6))
+
+    def to(x):
+        return [t.to(device) for t in x]
+    card = GANState(copy.deepcopy(st.gen).to(device),
+                    copy.deepcopy(st.disc).to(device),
+                    AdamState(to(st.g_opt.mu), to(st.g_opt.nu), 0),
+                    AdamState(to(st.d_opt.mu), to(st.d_opt.nu), 0), 0,
+                    torch.Generator(device))
+    return cfg, ds, enc, tables, st, card
+
+
+def test_dp_step_on_the_card_matches_the_cpu(cuda):
+    """One DP step (16 packs of 4) on the card against the same step on
+    the CPU, from the same weights, batch and injected draws, TF32 off:
+    the tolerance of a train step (losses rtol 1e-4, moments atol 2e-6,
+    parameters atol lr and 99% of them within 2e-6; the per-pack sums are
+    float32 in another order and Adam turns rounding-level gradients into
+    lr-sized steps); one activation forward for the shared fake and one
+    forward and backward for the generator step."""
+    from repro_torch.gan.dp import draw_dp_step_noise, make_dp_train_steps
+    from repro_torch.synth import draw_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, _, enc, tables, st, card = _dp_setup(cuda)
+    cpu = torch.device("cpu")
+    batch = draw_batch(tables[cpu], cfg.batch_size, enc.cond_dim,
+                       generator=torch.Generator().manual_seed(7))
+    noise = draw_dp_step_noise(torch.Generator().manual_seed(8), cfg,
+                               st.disc, cfg.batch_size, enc.encoded_dim, cpu)
+    step = make_dp_train_steps(cfg, enc.spans(), enc.condition_spans(),
+                               l2_clip=1.0, noise_mult=0.3)
+    m_cpu = step(st, batch, noise)
+    with ops.dispatch_scope() as d:
+        m_gpu = step(card, tuple(t.to(cuda) for t in batch),
+                     type(noise)(*(
+                         [t.to(cuda) for t in x] if isinstance(x, list)
+                         else x.to(cuda) for x in noise)))
+        torch.cuda.synchronize()
+    assert dict(d) == {"segment_activations": 2,
+                       "segment_activations_bwd": 1}
+    for k in m_cpu:
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-4,
+                                   atol=1e-6)
+    for x, y in ((card.g_opt, st.g_opt), (card.d_opt, st.d_opt)):
+        assert x.count == y.count == 1
+        for a, b in zip(x.mu + x.nu, y.mu + y.nu):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-6)
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().reshape(-1)
+                       for a, b in zip(card.params(), st.params())])
+    assert float(diffs.max()) <= cfg.lr
+    assert float((diffs <= 2e-6).float().mean()) >= 0.99
+
+
+def test_traced_round_on_the_card_is_bit_identical(cuda):
+    """A traced run and an untraced one at the same seed on the card:
+    the same generator bit for bit, one merge launch a round; the round-1
+    broadcast rebuilt from the trace (the reference's layout, merged on
+    the host in float64) is the card's merged model within rtol 1e-6,
+    atol 1e-7."""
+    from repro_torch.core.architectures import run_federated
+    from repro_torch.gan.ctgan import CTGANConfig
+    from repro_torch.privacy import RoundTrace, global_params
+    from repro_torch.tabular import make_dataset, partition_iid
+
+    cfg = CTGANConfig(z_dim=16, gen_hidden=(32, 32), disc_hidden=(32, 32),
+                      pac=4, batch_size=64)
+    ds = make_dataset("adult", n_rows=1200, seed=4)
+    parts = partition_iid(ds, 3, seed=4)
+    kw = dict(cfg=cfg, rounds=2, local_steps=2, seed=2, device=cuda)
+    tr, merged = RoundTrace(), []
+    with ops.dispatch_scope() as d:
+        traced = run_federated(
+            parts, ds.schema, trace=tr, on_round=lambda r, st, m: merged.append(
+                [t.detach().clone() for t in st[0].params()]), **kw)
+        torch.cuda.synchronize()
+    plain = run_federated(parts, ds.schema, **kw)
+    assert d["weighted_agg"] == 2 and not any(k.endswith("_ref") for k in d)
+    for a, b in zip(traced.final_g_params.parameters(),
+                    plain.final_g_params.parameters()):
+        assert torch.equal(a, b)
+    assert tr.n_rounds == 2 and tr.updates[0].shape[0] == 3
+    assert all(np.isfinite(u).all() for u in tr.updates)
+    g = global_params(tr, cfg, traced.encoders, index=1)
+    for a, b in zip(list(g["g"].parameters()) + list(g["d"].parameters()),
+                    merged[0], strict=True):
+        torch.testing.assert_close(a.detach(), b, rtol=1e-6, atol=1e-7)
+
+
+_FIRST_TRAINING = """
+import sys
+from repro_torch.core.architectures import run_federated
+from repro_torch.gan.ctgan import CTGANConfig
+from repro_torch.gan.dp import DPConfig
+from repro_torch.tabular import make_dataset, partition_iid
+cfg = CTGANConfig(z_dim=16, gen_hidden=(32, 32), disc_hidden=(32, 32),
+                  pac=4, batch_size=64)
+ds = make_dataset("adult", n_rows=1200, seed=4)
+parts = partition_iid(ds, 3, seed=4)
+kw = {"dp": DPConfig(l2_clip=1.0, noise_mult=0.3)} if sys.argv[1] == "dp" else {}
+runs = [[p.detach().clone() for p in run_federated(
+    parts, ds.schema, cfg=cfg, rounds=2, local_steps=2, seed=2,
+    device="cuda", **kw).final_g_params.parameters()] for _ in range(3)]
+print(max(float((a - b).abs().max()) for r in runs[1:]
+          for a, b in zip(runs[0], r)))
+"""
+
+
+@pytest.mark.parametrize("mode", ["fed", "dp"])
+def test_first_training_of_a_process_is_bit_identical_to_later_ones(
+        cuda, mode):
+    """In a fresh process, the first federated CTGAN run (DP or not) ends
+    with the same generator bit for bit as two later runs at the same
+    seed.  The critic's gradient sums the WGAN term's and the penalty's
+    apart (``gan/trainer.py:critic_grads``); summed by one autograd call,
+    the order of the contributions followed the autograd engine's node
+    order on the card, which differed in a process's first training."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run(
+        [sys.executable, "-c", _FIRST_TRAINING, mode], capture_output=True,
+        text=True, timeout=600, env=dict(os.environ, PYTHONPATH=str(src)))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert float(out.stdout.split()[-1]) == 0.0, out.stdout
+
+
+def test_discriminator_scores_on_the_card_match_the_cpu(cuda):
+    """The attack's scores of one critic on the card (the encode on
+    ``vgm_encode_table``) against the CPU, the same Gumbel noise injected:
+    rtol = atol = 1e-5 (the encode is exact; the critic's float32
+    products are summed in another order)."""
+    from repro_torch.privacy import discriminator_scores
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, ds, enc, _, st, card = _dp_setup(cuda)
+    enc_card = type(enc)(enc.schema, enc.label_encoders, {
+        j: type(p)(*(getattr(p, f).to(cuda)
+                     for f in ("weights", "means", "stds", "valid")))
+        for j, p in enc.vgms.items()}, cuda)
+    rows = ds.data[:500]
+    gumbel = enc.plan().draw_gumbel(len(rows),
+                                    torch.Generator().manual_seed(9))
+    want = discriminator_scores(st.disc, rows, enc, cfg, gumbel=gumbel)
+    with ops.dispatch_scope() as d:
+        got = discriminator_scores(card.disc, rows, enc_card, cfg,
+                                   gumbel=gumbel.to(cuda))
+    assert dict(d) == {"vgm_encode_table": 1}
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -436,11 +436,25 @@ def test_run_federated_on_the_cpu(edges):
 
 
 @pytest.mark.parametrize("option", [
-    dict(client_chunk=1), dict(dp=object()), dict(trace=object())])
+    dict(client_chunk=1), dict(dp="DPConfig"), dict(trace="RoundTrace")])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_federated([np.zeros((4, 1))], [], rounds=1, device="cpu",
-                      **option)
+    """``client_chunk`` is still unported and raises naming its ROADMAP
+    entry; ``dp`` and ``trace``, ported since, run a round instead."""
+    if "client_chunk" in option:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run_federated([np.zeros((4, 1))], [], rounds=1, device="cpu",
+                          **option)
+        return
+    from repro_torch.gan.dp import DPConfig
+    from repro_torch.privacy import RoundTrace
+    ds = jds.make_dataset("adult", n_rows=64, seed=0)
+    arg = DPConfig() if "dp" in option else RoundTrace()
+    res = run_federated(jds.partition_iid(ds, 2), ds.schema, cfg=CFG,
+                        rounds=1, device="cpu", **{next(iter(option)): arg})
+    if "dp" in option:
+        assert res.epsilon == DPConfig().epsilon(1, CFG.batch_size, 32)
+    else:
+        assert arg.n_rounds == 1 and arg.meta["dp"] is False
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():

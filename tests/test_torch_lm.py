@@ -357,6 +357,10 @@ def test_main_runs_on_the_cpu(capsys):
                  "--clients", "2", "--rounds", "1", "--local-steps", "1",
                  "--batch", "1", "--seq", "16", "--device", "cpu"])
     assert "round    1 mean-loss" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="gan/dp.py"):
-        ttrain.main(["--smoke", "--federated", "--dp-noise", "1.0",
-                     "--device", "cpu"])
+    ttrain.main(["--arch", "smollm-135m", "--smoke", "--federated",
+                 "--clients", "2", "--rounds", "1", "--local-steps", "1",
+                 "--batch", "1", "--seq", "16", "--dp-noise", "1.0",
+                 "--dp-clip", "0.5", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "round    1 mean-loss" in out
+    assert "client-level DP: clip 0.5 noise 1.0 -> eps ~=" in out

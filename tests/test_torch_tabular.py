@@ -226,7 +226,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "core.weighting", "core.aggregation", "core.comm_model",
                  "core.architectures", "fed.merge", "fed.setup",
                  "fed.program", "interop", "models.ssm",
-                 "kernels.mlstm_chunk", "launch.serve"):
+                 "kernels.mlstm_chunk", "launch.serve", "gan.dp",
+                 "privacy.trace", "privacy.attacks"):
         assert f"repro_torch.{name}" in imported, name
 
 

@@ -103,3 +103,45 @@ def md_step_draws(key, cfg, spans, batch, dim, n_spans, n_clients):
     ks = jax.random.split(kd[n_clients], n_clients)
     return draws, [_noise(kd[p], ks[p], cfg, spans, batch, dim)
                    for p in range(n_clients)]
+
+
+def dp_step_noise(rng, cfg, spans, batch, dim, disc):
+    """``gan/dp.py:make_dp_train_steps``: ``split(rng, 6)`` -> (next, z,
+    activations, packs, Gaussians, generator).  Pack i's key is
+    ``split(packs, B/pac)[i]``, split 3 ways (fake dropout, real dropout,
+    penalty; the penalty's 2 ways: eps, unused); the Gaussians' key splits
+    once per critic leaf in ``jax.tree`` order (sorted keys: ``fc0/b``,
+    ``fc0/w``, ...), each drawn in the reference's ``(fan_in, fan_out)``
+    layout and handed over in ``disc.parameters()`` order, transposed as
+    the port stores it; the generator's key splits 3 ways as in
+    :func:`_noise`.  Returns (the :class:`DPStepNoise`, the key the state carries on)."""
+    from repro_torch.gan.dp import DPStepNoise
+    from repro_torch.interop import _layout
+    nxt, kz, ka, kd, kn, kg = jax.random.split(rng, 6)
+    n_packs = batch // cfg.pac
+    keep_f, keep_r, eps = [], [], []
+    for pk in jax.random.split(kd, n_packs):
+        k1, k2, kgp = jax.random.split(pk, 3)
+        keep_f.append(dropout_keeps(k1, cfg, cfg.pac))
+        keep_r.append(dropout_keeps(k2, cfg, cfg.pac))
+        keps, _ = jax.random.split(kgp)
+        eps.append(np.asarray(jax.random.uniform(keps, (1, 1, 1))))
+    layout = _layout(disc)
+    keys = dict(zip(sorted(key for _, key, _ in layout),
+                    jax.random.split(kn, len(layout))))
+    d_noise = []
+    for param, key, transposed in layout:
+        shape = tuple(param.shape[::-1]) if transposed else tuple(param.shape)
+        a = np.asarray(jax.random.normal(keys[key], shape, jnp.float32))
+        d_noise.append(torch.from_numpy(np.array(a.T if transposed else a,
+                                                 order="C")))
+    gz, ga, gd = jax.random.split(kg, 3)
+    return DPStepNoise(
+        z_d=t(jax.random.normal(kz, (batch, cfg.z_dim))),
+        u_d=activation_uniforms(ka, spans, batch, dim),
+        keep_d_fake=[torch.cat(layer) for layer in zip(*keep_f)],
+        keep_d_real=[torch.cat(layer) for layer in zip(*keep_r)],
+        gp_eps=torch.from_numpy(np.concatenate(eps)),
+        z_g=t(jax.random.normal(gz, (batch, cfg.z_dim))),
+        u_g=activation_uniforms(ga, spans, batch, dim),
+        keep_g=dropout_keeps(gd, cfg, batch), d_noise=d_noise), nxt
