@@ -1,7 +1,8 @@
 """Drive the PyTorch port's serving, federated CTGAN training, federated
 LM pre-training and xLSTM LM serving paths, the paper's baseline
-architectures, the degraded federation and differentially private
-federation with the privacy attacks once on one CUDA card.
+architectures, the degraded federation, differentially private
+federation with the privacy attacks, and the paper's evaluation matrix
+with the federation at scale once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -81,7 +82,9 @@ which stops the run with a non-zero exit on failure:
    activation backward in each layout timed at the training shape and at
    500 to 4,099 rows over span widths, and the table decode at each rung
    of the serving ladder, each against its plain version; and the encode's
-   shape line: the table encode at (40,000, 22), (40,000, 5), (8,000, 5)
+   shape line (measured right after the build, where its short traces come
+   back whole, and printed here): the table encode at (40,000, 22),
+   (40,000, 5), (8,000, 5)
    and (128, 22) and the column encode at 40,000 and 8,000 rows, Kmax 10,
    each equal to its plain version, with its device time, its traced
    launch, the plain version's time and its bound;
@@ -124,15 +127,34 @@ which stops the run with a non-zero exit on failure:
    range of 5 alternating windows of 10 steps, and each step's device
    busy time from a CUDA-only trace); one
    smollm-135m round with client-level DP at phase 10's configuration:
-   one ``weighted_agg``, the flash launches of a round, a finite loss.
+   one ``weighted_agg``, the flash launches of a round, a finite loss;
+18. the paper's evaluation matrix and the federation at scale, at full
+   width: (a) ``run_matrix`` over the five scenarios x (``fedtgan``,
+   ``uniform``) on ``adult`` at 40,000 rows, 4 clients, 2 rounds of 2
+   local steps, 512 evaluation rows: every cell finite, its client rows
+   the partition's, one ``weighted_agg`` a round, the quantity split's
+   big client the heaviest under ``fedtgan`` (above 0.25); one
+   ``iid / fedtgan / chaos`` cell with ``client_chunk=2, edges=2`` (two
+   merges a round); (b) a base federation of 16 IID clients of 2,500
+   rows tiled (``tile_federation``) to 128 clients: one round of one step
+   dense and chunked (``client_chunk=16``) from clones of one start,
+   bit-identical; then to 1,024 clients: one round of one step with
+   ``client_chunk=16, edges=32``: 2 merges, one activation backward a
+   client, every state finite; seconds, peak memory, the busy share from
+   a CUDA-only trace of one more round; (c) an NCCL group of one rank
+   (a file store): ``shard_map_global_round`` for one round of 2 local
+   steps on client 0 of phase 6's split against ``FederatedProgram.
+   global_round`` on a clone, bit-identical; ``broadcast_from(src=0)``
+   the identity; the group destroyed.
 
 Phases 3-5 are the serving main path, phase 6 the CTGAN training main
 path, phase 10 the LM main path, phase 11 the path of the single-column
-encode, phase 13 the xLSTM serving path, and each run of phases 15, 16
-and 17: the kernel launch counters are set to 0 just before each and read
-just after, every kernel of the path must have launched, and no
+encode, phase 13 the xLSTM serving path, and each run of phases 15, 16,
+17 and 18: the kernel launch counters are set to 0 just before each and
+read just after, every kernel of the path must have launched, and no
 plain-version counter may move.  The ``kernels`` line's ``launches`` are
-the main paths' counts; phase 17's are given apart as ``launches_phase17``.
+the main paths' counts; phases 17's and 18's are given apart as
+``launches_phase17`` and ``launches_phase18``.
 The last two lines of output are the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; a longer
 record goes to ``chiprun_out/chip_smoke.json``.
@@ -213,6 +235,14 @@ PARTICIPATION, PROX_MU = 0.8, 0.01
 # of each side of the membership attack, and the steps timed
 PRIV_ROUNDS, PRIV_STEPS, PRIV_CLIP, PRIV_NOISE = 2, 2, 1.0, 0.3
 PRIV_ATTACK_ROWS, PRIV_TIMED, PRIV_WINDOWS = 2000, 10, 5
+# the evaluation matrix and the federation at scale: clients, rounds and
+# local steps of a matrix cell and its evaluation rows (the reference's
+# run_matrix default); the scale sweep's base federation (16 IID clients
+# of 2,500 rows, as benchmarks/fed_bench.py stages it), its tiled sizes,
+# chunk and edges; local steps of the collective round
+MX_CLIENTS, MX_ROUNDS, MX_STEPS, MX_EVAL = 4, 2, 2, 512
+SCALE_BASE, SCALE_CHECK_P, SCALE_P = 16, 128, 1024
+SCALE_CHUNK, SCALE_EDGES, COLL_STEPS = 16, 32, 2
 
 
 def fail(msg: str):
@@ -1797,6 +1827,226 @@ def privacy_phase(dev, cfg, ds) -> dict:
     return out
 
 
+def matrix_scale_phase(dev, cfg, ds) -> dict:
+    """Phase 18: the paper's evaluation matrix (``run_matrix``), the
+    federation tiled to 128 and 1,024 clients with the chunked client axis
+    and the two-tier merge, and the collective round on an NCCL group of
+    one rank."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.aggregation import broadcast_from
+    from repro_torch.core.architectures import _clone_states
+    from repro_torch.fed import (FederatedProgram, setup_federation,
+                                 shard_map_global_round, tile_federation)
+    from repro_torch.fed.scenarios import (SCENARIOS, partition, print_table,
+                                           run_matrix)
+    from repro_torch.kernels import ops
+    from repro_torch.tabular import partition_iid
+
+    out: dict = {}
+    counts: dict = {}
+
+    def tally(name):
+        """This part's launches since the counters were cleared, checked
+        for plain calls and added to the phase's."""
+        torch.cuda.synchronize()
+        _no_plain_calls(name)
+        got = dict(ops.DISPATCH_COUNTS)
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        return got
+
+    # (a) the matrix: five scenarios x two weightings, then a chaos cell
+    t0 = time.perf_counter()
+    ops.DISPATCH_COUNTS.clear()
+    recs = run_matrix(("adult",), tuple(SCENARIOS), ("fedtgan", "uniform"),
+                      ("none",), n_clients=MX_CLIENTS, rows=N_ROWS,
+                      rounds=MX_ROUNDS, local_steps=MX_STEPS, cfg=cfg,
+                      eval_samples=MX_EVAL, device=dev)
+    matrix_s = time.perf_counter() - t0
+    got = tally("matrix")
+    cells = len(recs)
+    check(cells == 2 * len(SCENARIOS), f"matrix: {cells} records")
+    check(got.get("weighted_agg") == cells * MX_ROUNDS,
+          f"matrix: weighted_agg {got.get('weighted_agg')}, not one a round")
+    check(got.get("segment_activations_bwd")
+          == cells * MX_CLIENTS * MX_ROUNDS * MX_STEPS,
+          f"matrix: segment_activations_bwd {got}")
+    for r in recs:
+        check(r["finite"], f"matrix cell not finite: {r}")
+        want = [len(p) for p in partition(r["scenario"], ds, MX_CLIENTS)]
+        check(r["client_rows"] == want,
+              f"{r['scenario']}: client rows {r['client_rows']} != {want}")
+    by = {(r["scenario"], r["weighting"]): r for r in recs}
+    wq = by[("quantity", "fedtgan")]["weights"]
+    check(int(np.argmax(wq)) == MX_CLIENTS - 1 and wq[-1] > 1 / MX_CLIENTS,
+          f"quantity skew: fedtgan weights {wq} do not favour the big client")
+    print(f"evaluation matrix: adult at {N_ROWS} rows, {MX_CLIENTS} clients,"
+          f" {MX_ROUNDS} rounds x {MX_STEPS} local steps, {cells} cells in "
+          f"{matrix_s:.2f} s ({matrix_s / cells:.3f} s a cell with setup; "
+          f"rounds and evaluation "
+          f"{[round(r['seconds'], 3) for r in recs]} s); launches {got}")
+    print_table(recs)
+    mal = {w: by[("malicious", w)]["weights"][-1] for w in ("fedtgan",
+                                                            "uniform")}
+    print(f"malicious client's weight (recorded, not gated): fedtgan "
+          f"{mal['fedtgan']}, uniform {mal['uniform']}")
+    t0 = time.perf_counter()
+    ops.DISPATCH_COUNTS.clear()
+    [chaos] = run_matrix(("adult",), ("iid",), ("fedtgan",), ("chaos",),
+                         n_clients=MX_CLIENTS, rows=N_ROWS, rounds=MX_ROUNDS,
+                         local_steps=MX_STEPS, cfg=cfg, eval_samples=MX_EVAL,
+                         client_chunk=2, edges=2, device=dev)
+    chaos_s = time.perf_counter() - t0
+    got = tally("chaos cell")
+    check(chaos["finite"], f"chaos cell not finite: {chaos}")
+    check(got.get("weighted_agg") == 2 * MX_ROUNDS,
+          f"chaos cell: weighted_agg {got.get('weighted_agg')}, not 2 a "
+          "round")
+    print(f"chaos cell (iid, fedtgan, client_chunk=2, edges=2): finite, "
+          f"retries {chaos['retries']}, faults {chaos['fault_summary']}, "
+          f"{chaos_s:.2f} s; launches {got}")
+    out["matrix"] = {"records": recs, "seconds": matrix_s,
+                     "chaos": chaos, "chaos_s": chaos_s,
+                     "malicious_weight": mal}
+
+    # (b) scale: 16 IID clients of 2,500 rows, tiled
+    parts = partition_iid(ds, SCALE_BASE, seed=0)
+    t0 = time.perf_counter()
+    ops.DISPATCH_COUNTS.clear()
+    base = setup_federation(parts, ds.schema, cfg, 0, "fedtgan", device=dev)
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+
+    def program(**kw):
+        return FederatedProgram(cfg, base.spans, base.cond_spans,
+                                batch=cfg.batch_size, local_steps=1, **kw)
+    mid = tile_federation(base, SCALE_CHECK_P)
+    runs = {}
+    for chunk in (None, SCALE_CHUNK):
+        states = _clone_states(mid.states)
+        t0 = time.perf_counter()
+        program(client_chunk=chunk).weighted_round(states, mid.tables,
+                                                   mid.weights)
+        torch.cuda.synchronize()
+        runs[chunk] = (states, time.perf_counter() - t0)
+    same = all(torch.equal(a, b) for x, y in zip(runs[None][0],
+                                                 runs[SCALE_CHUNK][0])
+               for a, b in zip(x.params(), y.params()))
+    check(same, f"P={SCALE_CHECK_P}: the chunked round differs from the "
+          "dense round")
+    print(f"scale: base {SCALE_BASE} IID clients x {len(parts[0])} rows "
+          f"set up in {base_s:.2f} s; P={SCALE_CHECK_P}, one round of one "
+          f"step: dense {runs[None][1]:.2f} s, client_chunk={SCALE_CHUNK} "
+          f"{runs[SCALE_CHUNK][1]:.2f} s, bit-identical")
+    del runs, mid, states
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)     # earlier phases' tensors
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    big = tile_federation(base, SCALE_P)
+    torch.cuda.synchronize()
+    tile_s = time.perf_counter() - t0
+    prog = program(client_chunk=SCALE_CHUNK, n_edges=SCALE_EDGES)
+    before = dict(ops.DISPATCH_COUNTS)
+    t0 = time.perf_counter()
+    prog.weighted_round(big.states, big.tables, big.weights)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    delta = _launch_delta(before)
+    check(delta.get("weighted_agg") == 2,
+          f"P={SCALE_P}: weighted_agg {delta.get('weighted_agg')}, not 2")
+    check(delta.get("segment_activations_bwd") == SCALE_P,
+          f"P={SCALE_P}: segment_activations_bwd "
+          f"{delta.get('segment_activations_bwd')}, not {SCALE_P}")
+    finite = torch.stack([torch.isfinite(t).all() for st in big.states
+                          for t in st.params()]).all()
+    check(bool(finite), f"P={SCALE_P}: a state is not finite")
+    busy_ms, top = device_busy(lambda: prog.weighted_round(
+        big.states, big.tables, big.weights))
+    busy = busy_ms / (round_s * 1e3)
+    got = tally("scale")
+    print(f"P={SCALE_P} (tiled in {tile_s:.2f} s), one round of one step, "
+          f"client_chunk={SCALE_CHUNK}, edges={SCALE_EDGES}: {round_s:.2f} s,"
+          f" peak {peak / 1e9:.2f} GB allocated ({(peak - held) / 1e9:.2f} "
+          f"GB above the {held / 1e9:.2f} GB held before the tiling), "
+          f"device busy "
+          f"{busy_ms:.1f} ms (idle share {1 - busy:.3f}, CUDA-only trace "
+          f"of one more round); launches {delta}; every state finite")
+    out["scale"] = {"base_s": base_s, "check_p": SCALE_CHECK_P,
+                    "P": SCALE_P, "tile_s": tile_s, "round_s": round_s,
+                    "peak_bytes": peak, "held_bytes": held,
+                    "busy_ms": busy_ms,
+                    "busy_share": busy, "top_kernels": top,
+                    "launches": delta}
+    del big, prog
+    torch.cuda.empty_cache()
+
+    # (c) the collective round: NCCL, one rank
+    ops.DISPATCH_COUNTS.clear()
+    fe1 = setup_federation(partition_iid(ds, FED_CLIENTS, seed=0)[:1],
+                           ds.schema, cfg, 0, "fedtgan", device=dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            coll = shard_map_global_round(cfg, fe1.spans, fe1.cond_spans,
+                                          batch=cfg.batch_size,
+                                          local_steps=COLL_STEPS)
+            fused = FederatedProgram(cfg, fe1.spans, fe1.cond_spans,
+                                     batch=cfg.batch_size,
+                                     local_steps=COLL_STEPS)
+            times = {"collective": [], "fused": []}
+            # twice: the first collective call also creates the NCCL
+            # communicator
+            for _ in range(2):
+                states = _clone_states(fe1.states)
+                t0 = time.perf_counter()
+                coll(states, fe1.tables, fe1.S, fe1.n_rows)
+                torch.cuda.synchronize()
+                times["collective"].append(time.perf_counter() - t0)
+                ref = _clone_states(fe1.states)
+                t0 = time.perf_counter()
+                fused.global_round(ref, fe1.tables, fe1.S, fe1.n_rows)
+                torch.cuda.synchronize()
+                times["fused"].append(time.perf_counter() - t0)
+                check(all(torch.equal(a, b) for a, b in zip(
+                    states[0].params(), ref[0].params(), strict=True)),
+                    "collective round differs from the fused round at P=1")
+            kept = [t.detach().clone() for t in states[0].params()]
+            broadcast_from(states[0].params(), src=0)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(
+                kept, states[0].params())), "broadcast_from(src=0) at one "
+                "rank is not the identity")
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    got = tally("collective round")
+    check(not dist.is_initialized(), "the process group outlived phase 18")
+    ms = {k: [round(t * 1e3, 3) for t in v] for k, v in times.items()}
+    print(f"collective round ({backend}, world size 1): "
+          f"shard_map_global_round, {COLL_STEPS} local steps on client 0 of "
+          f"phase 6's split, twice from one start: {ms['collective']} ms "
+          f"(the first creates the communicator) against the fused "
+          f"global_round's {ms['fused']} ms: bit-identical; "
+          f"broadcast_from(src=0) the identity; launches {got}")
+    out["collective"] = {"backend": backend, "ms": ms}
+
+    on_path = ("vgm_encode_table", "segment_activations",
+               "segment_activations_bwd", "vgm_decode_table", "weighted_agg")
+    check(all(counts.get(k, 0) > 0 for k in on_path),
+          f"phase 18: a kernel of the path never launched: {counts}")
+    out["launches"] = counts
+    print(f"phase 18 launches {counts}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1867,6 +2117,10 @@ def main() -> int:
     record["hgmma"] = hgmma
     grids = mlstm_grid_times(dev)
     record["mlstm_grids"] = grids
+    # the encode's shape line traces 20-call windows; taken early, as the
+    # mLSTM grids are: such short traces late in the run came back empty
+    # (three in a row once, after the xLSTM phase); printed in phase 14
+    enc_shapes = encode_shapes(dev)
     short = [re.sub(r"^void |[(]anonymous namespace[)]::", "", g).split("(")[0]
              for g, _, _ in grids]
     print("mlstm_chunk grids at the prefill's shape (CUDA-only trace): "
@@ -2421,7 +2675,6 @@ def main() -> int:
                       f"{r['trace_ms'] * 1e3:.2f} us, plain "
                       f"{r['plain_ms'] * 1e3:.2f} us" for r in bd["decode"])
           + f"; an empty kernel {bd['empty_kernel_ms'] * 1e3:.2f} us")
-    enc_shapes = encode_shapes(dev)
     print_encode_shapes(enc_shapes)
     record.update(kernels=kernels, shapes=shapes, timing=timing,
                   activation_layouts=sweep, backward_decode_layouts=bd,
@@ -2441,6 +2694,13 @@ def main() -> int:
     for k in kernels:                  # this path's launches beside the main
         k["launches_phase17"] = record["privacy"]["launches"].get(k["name"], 0)
     lap("DP and privacy")
+
+    # ---- 18. the evaluation matrix and the federation at scale ---------
+    record["matrix_scale"] = matrix_scale_phase(dev, cfg, fed_ds)
+    for k in kernels:
+        k["launches_phase18"] = record["matrix_scale"]["launches"].get(
+            k["name"], 0)
+    lap("matrix and scale")
     record["phase_s"] = phase_s
     print(f"phase seconds {phase_s}")
 

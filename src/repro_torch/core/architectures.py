@@ -19,8 +19,8 @@ non-finite with its suspects blocked.  ``dp`` makes every local step
 DP-SGD (:mod:`repro_torch.gan.dp`) and ``trace`` records what the
 federation transmits (:class:`repro_torch.privacy.RoundTrace`), under
 both programs.  Bytes on the wire come from :mod:`.comm_model`.
-``client_chunk`` is not ported; it raises ``NotImplementedError`` naming
-its ROADMAP entry.
+``client_chunk`` (the reference's chunked client axis) is taken by both
+programs and gives the dense run's result.
 
 Every random stream is seeded from ``seed`` and the stream's index
 (:func:`repro_torch.device.seeded_generator`): each round's participation
@@ -49,12 +49,11 @@ from ..gan.ctgan import (CTGANConfig, Generator, apply_activations_fused,
                          conditional_loss, gradient_penalty)
 from ..gan.dp import DPConfig
 from ..gan.trainer import (GANState, StepNoise, critic_grads, draw_step_noise,
-                           init_gan_state)
+                           init_gan_state, stack_metrics)
 from ..interop import flat_to_reference, gan_flat_index
 from ..optim import AdamState, adam
 from ..synth import (DeviceSampler, RoundEngine, SamplerDraws, SamplerTables,
                      draw_batch, synthesize_table)
-from ..synth.engine import _stack
 from ..tabular.encoders import (ColumnSpec, SpanInfo, TableEncoders,
                                 fit_centralized_encoders)
 from ..tabular.metrics import similarity_report
@@ -65,9 +64,6 @@ from .fedavg import sample_participation
 # seed streams of the entry points (beside setup_federation's)
 EVAL_STREAM = 999
 PARTICIPATION_STREAM = 777
-
-# the ROADMAP entry of the option still to port
-_SCALE = "client_chunk, tile_federation, scenarios and sharded"
 
 # run_federated's guard default: UpdateGuard() when a FaultPlan is given
 # (a chaos run should survive), no guard otherwise
@@ -149,9 +145,12 @@ def run_federated(client_data: Sequence[np.ndarray],
     oracle with the per-leaf merge and no kernel.  Both draw the same
     streams, so they agree up to the merges' rounding.  ``edges`` merges
     through that many edge aggregators, then the federator (``"fed"``
-    only).  With ``eval_real``, every ``eval_every`` rounds and after the
-    last, ``eval_samples`` rows synthesized from the merged generator are
-    scored against it (``avg_jsd``, ``avg_wd``) into ``history``.
+    only).  ``client_chunk`` runs the local rounds in chunks of that many
+    clients under both programs (it must divide the client count); the
+    run is bit-identical to the dense one.  With ``eval_real``, every
+    ``eval_every`` rounds and after the last, ``eval_samples`` rows
+    synthesized from the merged generator are scored against it
+    (``avg_jsd``, ``avg_wd``) into ``history``.
     ``on_round(r, states, metrics)`` is called after round r's merge, with
     every client's :class:`~repro_torch.gan.trainer.GANState` and the
     round's metrics on the device.
@@ -190,9 +189,6 @@ def run_federated(client_data: Sequence[np.ndarray],
     in the reference's layout, under both programs (bit-identical to an
     untraced run); not with faults, a guard or partial participation (a
     masked round's wire is not the dense stack it records)."""
-    if client_chunk is not None:
-        raise NotImplementedError(f"run_federated: client_chunk is not "
-                                  f"ported yet (ROADMAP: {_SCALE})")
     if program not in ("fed", "host"):
         raise ValueError(f"unknown program {program!r}; options: fed, host")
     if edges is not None and program != "fed":
@@ -228,8 +224,8 @@ def run_federated(client_data: Sequence[np.ndarray],
     prog = FederatedProgram(cfg, fe.spans, fe.cond_spans,
                             batch=cfg.batch_size, local_steps=local_steps,
                             weighting=weighting, participation=participation,
-                            fedprox_mu=fedprox_mu, guard=guard, n_edges=edges,
-                            dp=dp)
+                            fedprox_mu=fedprox_mu, guard=guard,
+                            client_chunk=client_chunk, n_edges=edges, dp=dp)
     epsilon = None
     if dp is not None:
         n_min = int(torch.min(fe.n_rows))
@@ -311,7 +307,7 @@ def run_federated(client_data: Sequence[np.ndarray],
                                        start + i)
                 hook(i, states, m)
                 out.append(m)
-            metrics = _stack(out)
+            metrics = stack_metrics(out)
         elif plan is None and trace is not None:
             states, metrics, arts = prog.run_traced(
                 states, fe.tables, fe.S, fe.n_rows, n, on_round=hook)

@@ -15,6 +15,10 @@ update guard, and the masked, renormalized merge in the same single
 ``fedprox_mu > 0`` pulls every local step toward the round's global
 parameters (:func:`repro_torch.core.fedavg.fedprox_wrap`).
 
+``client_chunk`` is the reference's chunked client axis, checked as it
+checks it; every kind of round (dense, traced, faulted, FedProx) gives
+the dense round's result with it, bit for bit.
+
 ``dp`` (a :class:`~repro_torch.gan.dp.DPConfig`) makes every local step
 DP-SGD (per-pack clip and Gaussian noise, :mod:`repro_torch.gan.dp`); the
 round keeps its single merge launch, and FedProx wraps the DP step.
@@ -38,10 +42,9 @@ from ..core.weighting import (quantity_only_weights, uniform_weights,
                               weights_from_divergence)
 from ..gan.ctgan import CTGANConfig
 from ..gan.dp import DPConfig
-from ..gan.trainer import GANState, StepNoise
+from ..gan.trainer import GANState, StepNoise, stack_metrics
 from ..kernels import ops
 from ..synth import RoundEngine, SamplerDraws, SamplerTables
-from ..synth.engine import _stack
 from ..tabular.encoders import SpanInfo
 from .faults import (DEFAULT_NORM_MULT, FaultPlan, UpdateGuard, apply_faults,
                      guard_ok, update_diagnostics)
@@ -74,6 +77,7 @@ class FederatedProgram:
                  local_steps: int, weighting: str = "fedtgan",
                  participation: float = 1.0, fedprox_mu: float = 0.0,
                  guard: UpdateGuard | None = None,
+                 client_chunk: int | None = None,
                  n_edges: int | None = None, dp: DPConfig | None = None):
         if weighting not in WEIGHTINGS:
             raise ValueError(f"unknown weighting {weighting!r}; "
@@ -81,6 +85,9 @@ class FederatedProgram:
         if not 0.0 < participation <= 1.0:
             raise ValueError(f"participation must be in (0, 1], "
                              f"got {participation}")
+        if client_chunk is not None and client_chunk < 1:
+            raise ValueError(f"client_chunk must be >= 1, "
+                             f"got {client_chunk}")
         if n_edges is not None and n_edges < 1:
             raise ValueError(f"n_edges must be >= 1, got {n_edges}")
         self.cfg = cfg
@@ -88,6 +95,7 @@ class FederatedProgram:
         self.participation = float(participation)
         self.fedprox_mu = float(fedprox_mu)
         self.guard = guard
+        self.client_chunk = client_chunk
         self.n_edges = n_edges
         self.engine = RoundEngine(cfg, tuple(spans), tuple(cond_spans),
                                   batch=batch, local_steps=local_steps, dp=dp)
@@ -120,13 +128,16 @@ class FederatedProgram:
 
     def clients(self, states: Sequence[GANState],
                 tables: Sequence[SamplerTables], **inject):
-        """Every client's local round; under FedProx each client's
+        """Every client's local round (``client_chunk`` checked, see
+        :meth:`RoundEngine.clients_round`); under FedProx each client's
         parameters before the round (the broadcast global model) are the
         anchor its steps are pulled toward."""
         aux = None
         if self.fedprox_mu > 0:
             aux = [[t.detach().clone() for t in s.params()] for s in states]
-        return self.engine.clients_round(states, tables, aux=aux, **inject)
+        return self.engine.clients_round(states, tables, aux=aux,
+                                         client_chunk=self.client_chunk,
+                                         **inject)
 
     def weighted_round(self, states: Sequence[GANState],
                        tables: Sequence[SamplerTables], w: torch.Tensor, *,
@@ -191,7 +202,7 @@ class FederatedProgram:
             out.append(m)
             if keep:
                 flats.append(flat)
-        return states, _stack(out), {"updates": flats, "weights": w}
+        return states, stack_metrics(out), {"updates": flats, "weights": w}
 
     def faulted_round(self, states: Sequence[GANState],
                       tables: Sequence[SamplerTables], w: torch.Tensor,
@@ -266,4 +277,4 @@ class FederatedProgram:
             if on_round is not None:
                 on_round(r, states, m)
             out.append(m)
-        return states, _stack(out)
+        return states, stack_metrics(out)

@@ -14,6 +14,9 @@ port's copy of the JAX package's ``fed/setup.py``.
   5. ONE model initialized by the federator and copied to every client,
      each with its own random stream.
 
+``tile_federation`` replicates a staged federation's clients out to
+thousands without running the protocol again.
+
 Every random stream is seeded from ``seed`` and the stream's index
 (:func:`repro_torch.device.seeded_generator`).
 """
@@ -58,6 +61,50 @@ class Federation:
     @property
     def n_clients(self) -> int:
         return int(self.n_rows.shape[0])
+
+    def fault_plan(self, regime: str, rounds: int, *, seed: int = 0):
+        """A named fault regime (see :data:`repro_torch.fed.scenarios.
+        FAULTS`) as a validated (rounds, P)
+        :class:`~repro_torch.fed.faults.FaultPlan` sized for this
+        federation; None for ``"none"``."""
+        # lazy: `python -m repro_torch.fed.scenarios` must not find the
+        # module imported by the package already
+        from .scenarios import build_fault_plan
+        return build_fault_plan(regime, rounds, self.n_clients, seed=seed)
+
+
+def tile_federation(fe: Federation, P: int) -> Federation:
+    """A staged federation's clients replicated out to ``P`` clients.
+
+    The §4.1 protocol (client statistics, VGM fits, encoders, encoding) is
+    paid once at the base federation's size; client p of the tiled one is
+    base client ``p % base``: an independent replica of its state
+    (:meth:`GANState.replica`), its sampler tables, divergence row and row
+    count.  The tables are read-only, so the tiled clients share the base
+    clients' table tensors instead of copying them (at P = 1,024 that
+    saves 1,024 copies of the encoded rows).  Every client, the base ones
+    included, gets a fresh stream seeded from client 0's seed and its own
+    index (the reference's ``fold_in(rng0, i)`` layout), so replicas do
+    not draw in lockstep.  The weights are resolved anew on the tiled
+    ``S``.  ``P`` must be a multiple of the base client count; ``P ==
+    base`` returns ``fe`` itself."""
+    base = fe.n_clients
+    if P < base or P % base:
+        raise ValueError(f"P={P} must be a positive multiple of the base "
+                         f"client count {base}")
+    if P == base:
+        return fe
+    reps = P // base
+    rng0 = fe.states[0].rng
+    states = [fe.states[p % base].replica(
+        seeded_generator(rng0.device, rng0.initial_seed(), p))
+        for p in range(P)]
+    S = fe.S.repeat(reps, 1)
+    n_rows = fe.n_rows.repeat(reps)
+    return dataclasses.replace(
+        fe, tables=[fe.tables[p % base] for p in range(P)], states=states,
+        S=S, n_rows=n_rows, weights=resolve_weights(fe.weighting, S, n_rows),
+        client_stats=fe.client_stats * reps)
 
 
 def setup_federation(client_data: Sequence[np.ndarray],

@@ -14,13 +14,19 @@ update (CTGAN's n_critic = 1), as the JAX package's ``gan/trainer.py`` does:
 Every random draw of a step is in a :class:`StepNoise`; one can be
 injected (the tests feed the reference's draws), else it is drawn from the
 client's own ``torch.Generator`` in :class:`GANState`.
+
+``make_round_batches`` / ``local_train_scan`` are the presampled baseline
+the device sampler (:class:`repro_torch.synth.RoundEngine`) replaced: every
+batch drawn on the host up front (:meth:`repro_torch.gan.sampler.
+ConditionalSampler.presample_rounds`), then the local steps run over them.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from ..optim import AdamState, adam
@@ -186,6 +192,41 @@ def make_train_steps(cfg: CTGANConfig, spans: Sequence[SpanInfo],
                 "wgan": wgan.detach(), "gp": gp.detach(), "ce": ce}
 
     return step
+
+
+def stack_metrics(metrics: Sequence[dict]) -> dict:
+    """Per-step (or per-client, per-round) metric dicts stacked on a new
+    leading axis."""
+    return {k: torch.stack([m[k] for m in metrics])
+            for k in (metrics[0] if metrics else ())}
+
+
+def make_round_batches(samplers, rounds: int, steps_per_round: int,
+                       batch: int, *, device: torch.device | str = "cuda"):
+    """Every client's (cond, mask, real) batches of a run, staged up front.
+
+    Each client's :class:`~repro_torch.gan.sampler.ConditionalSampler`
+    draws all ``rounds x steps x batch`` rows in one vectorized pass; the
+    results stack into ``(clients, rounds, steps, batch, ...)`` float32
+    tensors on ``device``, one host-to-device copy each."""
+    conds, masks, reals = zip(*[s.presample_rounds(rounds, steps_per_round,
+                                                   batch) for s in samplers])
+    return tuple(torch.from_numpy(np.stack(a)).to(device)
+                 for a in (conds, masks, reals))
+
+
+def local_train_scan(step_fn: Callable, state: GANState, round_batches,
+                     noise: Sequence[StepNoise] | None = None):
+    """E presampled local steps of ``state`` (in place), in order.
+    ``round_batches`` is (cond, mask, real), each with a leading steps
+    axis; ``noise`` injects one :class:`StepNoise` per step (else each
+    step draws from ``state.rng``).  Returns (state, metrics stacked over
+    the steps): the reference's ``lax.scan``, as a loop."""
+    cond, mask, real = round_batches
+    metrics = [step_fn(state, (cond[e], mask[e], real[e]),
+                       None if noise is None else noise[e])
+               for e in range(cond.shape[0])]
+    return state, stack_metrics(metrics)
 
 
 @torch.no_grad()

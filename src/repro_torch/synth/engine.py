@@ -5,8 +5,9 @@
 many train steps, with no host copy in between.  ``clients_round`` runs
 every client's local round in turn (the reference vmaps them; a Python
 loop over the clients launches the same kernels, and ``torch.func.vmap``
-cannot trace a ctypes launch); ``run_round`` and ``run`` are the
-single-client entry points (one round; many rounds in turn).  A prebuilt
+cannot trace a ctypes launch; ``client_chunk`` is checked and changes
+nothing else); ``run_round`` and ``run`` are the single-client entry
+points (one round; many rounds in turn).  A prebuilt
 ``step_fn`` replaces the train step, and a round-constant ``aux`` is
 handed to every step: the hooks FedProx uses
 (:func:`repro_torch.core.fedavg.fedprox_wrap`).  ``dp=`` swaps in the
@@ -28,7 +29,7 @@ from ..device import resolve_device
 from ..gan.ctgan import CTGANConfig, Generator, apply_activations_fused
 from ..gan.dp import make_dp_train_steps
 from ..gan.trainer import (GANState, StepNoise, make_train_steps,
-                           sample_synthetic)
+                           sample_synthetic, stack_metrics)
 from ..tabular.encoders import SpanInfo, TableEncoders
 from .sampler import SamplerDraws, SamplerTables, draw_batch, draw_conditions
 
@@ -80,7 +81,7 @@ class RoundEngine:
             metrics.append(self.step_fn(
                 state, batch if aux is None else (batch, aux),
                 None if noise is None else noise[e]))
-        return state, _stack(metrics)
+        return state, stack_metrics(metrics)
 
     # the reference's jitted single-client entry point; eager here
     run_round = local_round
@@ -89,17 +90,32 @@ class RoundEngine:
                       tables: Sequence[SamplerTables], *,
                       draws: Sequence[SamplerDraws] | None = None,
                       noise: Sequence[Sequence[StepNoise]] | None = None,
-                      aux: Sequence | None = None):
+                      aux: Sequence | None = None,
+                      client_chunk: int | None = None):
         """Every client's :meth:`local_round`, client by client; ``draws``,
         ``noise`` and ``aux`` are per client when given.  Returns (states,
-        metrics stacked (clients, steps))."""
+        metrics stacked (clients, steps)).
+
+        ``client_chunk`` is checked as the reference checks it: ``None``
+        or ``>= P`` is the dense round; below 1, or not dividing P, raises
+        ``ValueError``.  The reference runs a scan of vmapped chunks to
+        hold one chunk's activations at a time; here the clients already
+        run one at a time, in order, so chunks of them run the same
+        sequence of steps and a chunked round is the dense round, bit for
+        bit."""
+        P = len(states)
+        if client_chunk is not None and client_chunk < P and (
+                client_chunk < 1 or P % client_chunk):
+            raise ValueError(f"client_chunk={client_chunk} must be >= 1 "
+                             f"and divide the client count P={P}")
+
         def pick(x, p):
             return None if x is None else x[p]
         metrics = [self.local_round(st, tb, draws=pick(draws, p),
                                     noise=pick(noise, p),
                                     aux=pick(aux, p))[1]
                    for p, (st, tb) in enumerate(zip(states, tables))]
-        return states, _stack(metrics)
+        return states, stack_metrics(metrics)
 
     def run(self, state: GANState, tables: SamplerTables, rounds: int, *,
             draws: Sequence[SamplerDraws] | None = None,
@@ -111,14 +127,7 @@ class RoundEngine:
             state, tables, draws=None if draws is None else draws[r],
             noise=None if noise is None else noise[r])[1]
             for r in range(rounds)]
-        return state, _stack(metrics)
-
-
-def _stack(metrics: Sequence[dict]) -> dict:
-    """Per-step (or per-client, per-round) metric dicts stacked on a new
-    leading axis."""
-    return {k: torch.stack([m[k] for m in metrics])
-            for k in (metrics[0] if metrics else ())}
+        return state, stack_metrics(metrics)
 
 
 @torch.no_grad()

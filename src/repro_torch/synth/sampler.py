@@ -9,7 +9,7 @@ pick within the (span, category) bucket, as the JAX package's
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -105,3 +105,22 @@ class DeviceSampler:
             fallback=dev(host._fallback, torch.int64),
             offsets=dev(host._span_offsets[:-1], torch.int64))
 
+
+
+def stack_sampler_tables(samplers: Sequence[DeviceSampler]) -> SamplerTables:
+    """Per-client tables stacked on a leading client axis (the reference's
+    vmap-ready layout, the input of the presampled baseline's benchmark).
+    Clients with fewer rows are zero-padded to the largest N; padded rows
+    are unreachable (the CSR starts and counts address real rows only),
+    so a draw from row p of the stack equals the draw from client p's own
+    tables."""
+    n_max = max(int(s.tables.encoded.shape[0]) for s in samplers)
+
+    def pad(t: SamplerTables) -> SamplerTables:
+        n = int(t.encoded.shape[0])
+        return t._replace(
+            encoded=torch.nn.functional.pad(t.encoded, (0, 0, 0, n_max - n)),
+            order=torch.nn.functional.pad(t.order, (0, n_max - n)))
+
+    padded = [pad(s.tables) for s in samplers]
+    return SamplerTables(*(torch.stack(xs) for xs in zip(*padded)))

@@ -732,3 +732,82 @@ def test_discriminator_scores_on_the_card_match_the_cpu(cuda):
                                    gumbel=gumbel.to(cuda))
     assert dict(d) == {"vgm_encode_table": 1}
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _small_federation(device, n_clients):
+    from repro_torch.fed import setup_federation
+    from repro_torch.gan.ctgan import CTGANConfig
+    from repro_torch.tabular import make_dataset, partition_iid
+
+    cfg = CTGANConfig(z_dim=16, gen_hidden=(32, 32), disc_hidden=(32, 32),
+                      pac=4, batch_size=64)
+    ds = make_dataset("adult", n_rows=1200, seed=5)
+    parts = partition_iid(ds, n_clients, seed=5)
+    return cfg, setup_federation(parts, ds.schema, cfg, 5, "fedtgan",
+                                 device=device)
+
+
+@pytest.mark.parametrize("faulted", [False, True])
+def test_chunked_round_on_the_card_is_bit_identical_to_dense(cuda, faulted):
+    """One round of 4 clients dense and with ``client_chunk=2`` from clones
+    of one start on the card: every parameter and metric bit-identical,
+    one merge launch each (the clients run one at a time either way)."""
+    from repro_torch.core.architectures import _clone_states
+    from repro_torch.fed import FaultPlan, FederatedProgram, build_fault_plan
+
+    cfg, fe = _small_federation(cuda, 4)
+    plan = build_fault_plan("chaos", 1, 4, seed=1)
+    out = []
+    for chunk in (None, 2):
+        prog = FederatedProgram(cfg, fe.spans, fe.cond_spans,
+                                batch=cfg.batch_size, local_steps=2,
+                                client_chunk=chunk)
+        states = _clone_states(fe.states)
+        with ops.dispatch_scope() as d:
+            if faulted:
+                _, m = prog.faulted_round(states, fe.tables, fe.weights,
+                                          FaultPlan(*(x[0] for x in plan)))
+            else:
+                _, m = prog.weighted_round(states, fe.tables, fe.weights)
+            torch.cuda.synchronize()
+        assert d["weighted_agg"] == 1 and d["segment_activations_bwd"] == 8
+        out.append((states, m))
+    (dense, dm), (chunked, cm) = out
+    for k in dm:
+        assert torch.equal(dm[k], cm[k]), k
+    for a, b in zip(dense, chunked):
+        for x, y in zip(a.params(), b.params()):
+            assert torch.equal(x, y)
+
+
+def test_collective_round_on_nccl_matches_global_round(cuda, tmp_path):
+    """``shard_map_global_round`` on an NCCL group of one rank (a file
+    store) against ``FederatedProgram.global_round`` from a clone of one
+    client's start: bit-identical (the weight is 1, the all-reduce of one
+    rank returns its input); the group is destroyed whatever happens."""
+    import torch.distributed as dist
+
+    from repro_torch.core.architectures import _clone_states
+    from repro_torch.fed import FederatedProgram, shard_map_global_round
+
+    cfg, fe = _small_federation(cuda, 1)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        states = _clone_states(fe.states)
+        with ops.dispatch_scope() as d:
+            _, m = shard_map_global_round(
+                cfg, fe.spans, fe.cond_spans, batch=cfg.batch_size,
+                local_steps=2)(states, fe.tables, fe.S, fe.n_rows)
+            torch.cuda.synchronize()
+        assert "weighted_agg" not in d and d["segment_activations_bwd"] == 2
+    finally:
+        dist.destroy_process_group()
+    ref = _clone_states(fe.states)
+    _, rm = FederatedProgram(cfg, fe.spans, fe.cond_spans,
+                             batch=cfg.batch_size, local_steps=2
+                             ).global_round(ref, fe.tables, fe.S, fe.n_rows)
+    for k in rm:
+        assert torch.equal(m[k], rm[k]), k
+    for a, b in zip(states[0].params(), ref[0].params(), strict=True):
+        assert torch.equal(a, b)

@@ -351,7 +351,8 @@ def test_dp_round_keeps_its_merge_launches(small, form):
 def test_dp_host_and_fed_rounds_agree(small):
     """``dp=`` through ``program="host"`` and ``"fed"`` at one seed: the
     same DP local rounds, merges within their tolerance; the reported
-    epsilon is the reference's estimate at the smallest client."""
+    epsilon is the reference's estimate at the smallest client; with
+    ``client_chunk=2`` the fused run is the dense one, bit for bit."""
     ds, parts, _ = small
     cfg = dataclasses.replace(CFG, batch_size=8)
     conf = dp.DPConfig(noise_mult=1.5)
@@ -374,9 +375,14 @@ def test_dp_host_and_fed_rounds_agree(small):
     assert res.epsilon == float("inf")
     assert run_federated(parts, ds.schema, cfg=cfg, rounds=1,
                          device="cpu").epsilon is None
-    with pytest.raises(NotImplementedError, match="client_chunk"):
-        run_federated(parts, ds.schema, cfg=cfg, rounds=1, client_chunk=2,
-                      device="cpu")
+    # client_chunk, once refused, runs the DP rounds in chunks: the dense
+    # DP run's generator bit for bit
+    chunked = run_federated(parts, ds.schema, cfg=cfg, rounds=2,
+                            local_steps=2, seed=3, program="fed", dp=conf,
+                            client_chunk=2, device="cpu")
+    for a, b in zip(out["fed"].final_g_params.parameters(),
+                    chunked.final_g_params.parameters()):
+        assert torch.equal(a, b)
 
 
 # ---- the LM's client-level DP merge ---------------------------------------------

@@ -438,16 +438,22 @@ def test_run_federated_on_the_cpu(edges):
 @pytest.mark.parametrize("option", [
     dict(client_chunk=1), dict(dp="DPConfig"), dict(trace="RoundTrace")])
 def test_unported_options_raise(option):
-    """``client_chunk`` is still unported and raises naming its ROADMAP
-    entry; ``dp`` and ``trace``, ported since, run a round instead."""
-    if "client_chunk" in option:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_federated([np.zeros((4, 1))], [], rounds=1, device="cpu",
-                          **option)
-        return
+    """The options once refused run a round instead: ``dp`` and ``trace``
+    (ported in an earlier slice), and ``client_chunk``, whose run equals
+    the dense run bit for bit (``program="fed"``; the host program's in
+    ``tests/test_torch_scale.py``)."""
     from repro_torch.gan.dp import DPConfig
     from repro_torch.privacy import RoundTrace
     ds = jds.make_dataset("adult", n_rows=64, seed=0)
+    if "client_chunk" in option:
+        kw = dict(cfg=CFG, rounds=1, local_steps=2, device="cpu")
+        dense = run_federated(jds.partition_iid(ds, 2), ds.schema, **kw)
+        res = run_federated(jds.partition_iid(ds, 2), ds.schema, **kw,
+                            **option)
+        for a, b in zip(dense.final_g_params.parameters(),
+                        res.final_g_params.parameters()):
+            assert torch.equal(a, b)
+        return
     arg = DPConfig() if "dp" in option else RoundTrace()
     res = run_federated(jds.partition_iid(ds, 2), ds.schema, cfg=CFG,
                         rounds=1, device="cpu", **{next(iter(option)): arg})
