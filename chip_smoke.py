@@ -1,8 +1,9 @@
 """Drive the PyTorch port's serving, federated CTGAN training, federated
 LM pre-training and xLSTM LM serving paths, the paper's baseline
 architectures, the degraded federation, differentially private
-federation with the privacy attacks, and the paper's evaluation matrix
-with the federation at scale once on one CUDA card.
+federation with the privacy attacks, the paper's evaluation matrix
+with the federation at scale, and the MoE, Mamba, cross-attention and
+frame-input model families once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -145,16 +146,39 @@ which stops the run with a non-zero exit on failure:
    (a file store): ``shard_map_global_round`` for one round of 2 local
    steps on client 0 of phase 6's split against ``FederatedProgram.
    global_round`` on a clone, bit-identical; ``broadcast_from(src=0)``
-   the identity; the group destroyed.
+   the identity; the group destroyed;
+19. the rest of the model families at their published widths, random
+   weights from a seed: (a, b) greedy ``prefill_and_decode`` (2 prompts,
+   32 decoded tokens) of mixtral-8x22b (2 of 56 layers, 4,096-token
+   prompts: the 4,096 sliding-window ring wraps in decode),
+   llama4-maverick (2 of 48 layers: a dense and a 128-expert top-1 FFN),
+   jamba (8 of 72 layers: 7 Mamba, 1 attention, 4 MoE FFNs, experts cut
+   16 -> 8 to fit one card) and llama-3.2-vision-11b (whole, 8 gated
+   cross-attention layers onto 1,600 stub vision tokens, gates 0.7):
+   finite logits, tokens in the vocabulary, every prefill MoE call's
+   dropped fraction in [0, 1) and aux finite, no drop in one-token
+   decode, no kernel launch (the path has none); prefill and decode
+   tokens/s, peak memory and the busy share of one more prefill; (c)
+   hubert-xlarge whole (48 layers, hd 80, bidirectional, frame inputs,
+   bf16): one ``run_federated`` round of 2 clients x 2 local steps of 4 x
+   2,048 frames, finite losses, clients bit-identical, gated 384 flash
+   forwards, 192 dq, 192 dk/dv and one ``weighted_agg``; frames/s and the
+   busy share of one more round; a float32 copy cut to 4 layers, flash
+   (the float32 library at hd 80) against ``gqa_attention``; (d) each
+   family's smoke config in float32 on the card against the CPU: logits,
+   aux, every MoE call's routing, a prefill and 4 greedy decode steps.
+   Phase 14 also times the flash kernels at hubert's (4, 16, 2,048, 80)
+   bf16, bidirectional (the hd-80 tensor-core instances), with SDPA
+   beside.
 
 Phases 3-5 are the serving main path, phase 6 the CTGAN training main
 path, phase 10 the LM main path, phase 11 the path of the single-column
 encode, phase 13 the xLSTM serving path, and each run of phases 15, 16,
-17 and 18: the kernel launch counters are set to 0 just before each and
-read just after, every kernel of the path must have launched, and no
+17, 18 and 19: the kernel launch counters are set to 0 just before each
+and read just after, every kernel of the path must have launched, and no
 plain-version counter may move.  The ``kernels`` line's ``launches`` are
-the main paths' counts; phases 17's and 18's are given apart as
-``launches_phase17`` and ``launches_phase18``.
+the main paths' counts; phases 17's, 18's and 19's are given apart as
+``launches_phase17``, ``launches_phase18`` and ``launches_phase19``.
 The last two lines of output are the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; a longer
 record goes to ``chiprun_out/chip_smoke.json``.
@@ -243,6 +267,22 @@ PRIV_ATTACK_ROWS, PRIV_TIMED, PRIV_WINDOWS = 2000, 10, 5
 MX_CLIENTS, MX_ROUNDS, MX_STEPS, MX_EVAL = 4, 2, 2, 512
 SCALE_BASE, SCALE_CHECK_P, SCALE_P = 16, 128, 1024
 SCALE_CHUNK, SCALE_EDGES, COLL_STEPS = 16, 32, 2
+# the rest of the model families (phase 19): each served model with its
+# cuts (widths kept as published) and prompt length; the batch, the
+# decoded tokens and the cross-attention gates' value; hubert's federated
+# round (clients, local steps, batch, frames) and its float32 copy's
+# depth; the decode steps of the card-vs-CPU check
+FAMILY_SERVE = (
+    ("mixtral-8x22b", {"n_layers": 2}, 4096),
+    ("llama4-maverick-400b-a17b", {"n_layers": 2}, 2048),
+    ("jamba-1.5-large-398b", {"n_layers": 8, "n_experts": 8}, 2048),
+    ("llama-3.2-vision-11b", {}, 2048),
+)
+FAMILIES = ("mixtral-8x22b", "llama4-maverick-400b-a17b",
+            "jamba-1.5-large-398b", "llama-3.2-vision-11b", "hubert-xlarge")
+FAM_BATCH, FAM_GEN, XATTN_GATE = 2, 32, 0.7
+HUBERT_CLIENTS, HUBERT_STEPS, HUBERT_BATCH, HUBERT_SEQ = 2, 2, 4, 2048
+HUBERT_F32_LAYERS, FAMILY_CPU_STEPS = 4, 4
 
 
 def fail(msg: str):
@@ -2047,6 +2087,396 @@ def matrix_scale_phase(dev, cfg, ds) -> dict:
     return out
 
 
+def _gates_on(params) -> None:
+    """Every cross-attention gate to ``XATTN_GATE``: at its initial 0,
+    ``tanh`` switches cross-attention off."""
+    import torch
+    with torch.no_grad():
+        for rep in params["layers"]:
+            for blk in rep.values():
+                if "xattn_gate" in blk:
+                    blk["xattn_gate"].fill_(XATTN_GATE)
+
+
+class MoERecorder:
+    """For the span of a ``with`` block, every ``moe_ffn`` call of
+    ``Transformer`` as (tokens per row, metrics, routing or None): the
+    model module's ``moe_ffn`` wrapped, the routing recomputed by
+    ``moe_route`` when asked."""
+
+    def __init__(self, routing: bool = False):
+        self.routing, self.calls = routing, []
+
+    def __enter__(self):
+        from repro_torch.models import model as model_mod
+        from repro_torch.models.moe import moe_route
+        self.real = model_mod.moe_ffn
+
+        def record(p, x, cfg):
+            out, m = self.real(p, x, cfg)
+            self.calls.append((x.shape[1], m, moe_route(p, x, cfg)
+                               if self.routing else None))
+            return out, m
+        model_mod.moe_ffn = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as model_mod
+        model_mod.moe_ffn = self.real
+        return False
+
+
+def _n_moe(cfg) -> int:
+    return sum(cfg.ffn_is_moe(p) for p in range(len(cfg.pattern))) * cfg.n_rep
+
+
+def serve_family(dev, name: str, cuts: dict, prompt_len: int,
+                 seed: int) -> dict:
+    """Phase 19 (a, b): ``prefill_and_decode`` of one model at its
+    published widths (depth or experts cut by ``cuts``), greedy, with
+    random weights from ``seed`` (cross-attention gates at
+    ``XATTN_GATE``), then one more prefill for the card's busy share."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import prefill_and_decode
+    from repro_torch.models import Transformer, tree_leaves
+
+    cfg = dataclasses.replace(get_config(name), **cuts)
+    model = Transformer(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=seed, device=dev)
+    _gates_on(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    weights_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    g = torch.Generator(dev).manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab, (FAM_BATCH, prompt_len),
+                            device=dev, generator=g)
+    extras = {}
+    if cfg.xattn_tokens:
+        extras["vision"] = torch.randn(
+            (FAM_BATCH, cfg.xattn_tokens, cfg.d_model), device=dev,
+            generator=g).bfloat16()
+    ops.DISPATCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    with MoERecorder() as rec:
+        gen, stats = prefill_and_decode(
+            cfg, batch=FAM_BATCH, prompt_len=prompt_len, gen_tokens=FAM_GEN,
+            temperature=0, seed=seed, device=dev, params=params,
+            prompts=prompts, vision=extras.get("vision"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(ops.DISPATCH_COUNTS)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # no hand-written kernel is on this path (the prefill attends through
+    # gqa_attention, as the reference's does), and no plain route may run
+    check(not counts, f"{name} serving: launches {counts}, expected none")
+    check(stats["logits_finite"], f"{name} serving: a logit is not finite")
+    check(gen.shape == (FAM_BATCH, FAM_GEN)
+          and bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+          f"{name} serving: tokens {gen.shape} outside the vocabulary")
+    n_moe = _n_moe(cfg)
+    pre = [(float(m.dropped_fraction), float(m.aux_loss))
+           for s, m, _ in rec.calls if s > 1]
+    dec = [float(m.dropped_fraction) for s, m, _ in rec.calls if s == 1]
+    check(len(pre) == n_moe and len(dec) == n_moe * FAM_GEN,
+          f"{name}: {len(pre)} prefill and {len(dec)} decode MoE calls, "
+          f"expected {n_moe} and {n_moe * FAM_GEN}")
+    check(all(0.0 <= d < 1.0 and np.isfinite(a) for d, a in pre),
+          f"{name}: prefill MoE (dropped, aux) {pre}")
+    check(all(d == 0.0 for d in dec),
+          f"{name}: one-token decode dropped {max(dec, default=0)}")
+    prefill_tps = FAM_BATCH * prompt_len / stats["prefill_s"]
+
+    def one_prefill():
+        with torch.no_grad():
+            model.prefill(params, {"tokens": prompts, **extras},
+                          prompt_len + FAM_GEN)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    one_prefill()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    busy_ms, top = device_busy(one_prefill, top=4)
+    check(busy_ms > 0.0, f"{name}: the profiler saw no device time")
+    busy = busy_ms / (wall * 1e3)
+    moe_txt = ("" if not n_moe else
+               f"; MoE on the prefill: dropped {[round(d, 4) for d, _ in pre]}"
+               f", aux {[round(a, 4) for _, a in pre]}; decode dropped 0 "
+               f"({len(dec)} calls)")
+    print(f"family serve: {name} {cuts or 'whole'}, {n_params} parameters "
+          f"({weights_gb:.2f} GB, drawn in {init_s:.2f} s), bf16, "
+          f"{FAM_BATCH} x {prompt_len}-token greedy prefill in "
+          f"{stats['prefill_s']:.3f} s = {prefill_tps:.0f} tokens/s; "
+          f"{FAM_GEN} decode steps in {stats['decode_s']:.3f} s = "
+          f"{stats['tok_per_s']:.1f} tokens/s; peak memory {peak_gb:.2f} GB "
+          f"above the phase's start; one more prefill {wall * 1e3:.1f} ms "
+          f"wall, device busy {busy_ms:.1f} ms (busy share {busy:.3f}); "
+          f"launches {counts} (none on this path); logits finite{moe_txt}; "
+          f"top kernels: "
+          + "; ".join(f"{n} {ms:.1f} ms x{c}" for n, ms, c in top))
+    del params, model
+    torch.cuda.empty_cache()
+    return {"cuts": cuts, "params": n_params, "weights_gb": weights_gb,
+            "init_s": init_s, "prefill_s": stats["prefill_s"],
+            "prefill_tokens_per_s": prefill_tps,
+            "decode_s": stats["decode_s"],
+            "decode_tokens_per_s": stats["tok_per_s"], "run_s": run_s,
+            "peak_memory_gb": peak_gb, "extra_prefill_wall_ms": wall * 1e3,
+            "extra_prefill_busy_ms": busy_ms,
+            "extra_prefill_busy_share": busy, "moe_prefill": pre,
+            "top_kernels": top}
+
+
+def hubert_phase(dev) -> dict:
+    """Phase 19 (c): one federated round of hubert-xlarge at full width and
+    depth (frame inputs, bidirectional, hd 80, bf16, the flash kernels)
+    through ``run_federated``, one more round for the busy share, then a
+    float32 copy cut to ``HUBERT_F32_LAYERS`` layers: its logits through
+    the flash kernels against the plain ``gqa_attention`` route."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDatasetSpec, client_token_streams
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import (batch_maker, federated_round,
+                                          lm_optimizer, run_federated)
+    from repro_torch.models import Transformer, make_train_step, tree_leaves
+
+    cfg = dataclasses.replace(get_config("hubert-xlarge"),
+                              use_flash_kernel=True)
+    check(cfg.hd == 80 and not cfg.causal and not cfg.embed_inputs,
+          f"hubert-xlarge: hd {cfg.hd}, causal {cfg.causal}")
+    per_round = HUBERT_CLIENTS * HUBERT_STEPS
+    want = {"flash_attention_fwd": cfg.n_layers * per_round
+            * (2 if cfg.remat else 1),
+            "flash_attention_dq": cfg.n_layers * per_round,
+            "flash_attention_dkv": cfg.n_layers * per_round,
+            "weighted_agg": 1}
+    seen = {}
+
+    def on_round(r, states, m):
+        torch.cuda.synchronize()
+        seen["done"] = time.perf_counter()
+        seen["counts"] = dict(ops.DISPATCH_COUNTS)
+        ref = tree_leaves(states[0].params)
+        check(all(torch.equal(a, b) for st in states[1:]
+                  for a, b in zip(ref, tree_leaves(st.params), strict=True)),
+              "hubert round: clients differ after the merge")
+        lv = m["loss"].cpu().numpy()
+        check(lv.shape == (HUBERT_CLIENTS, HUBERT_STEPS)
+              and np.isfinite(lv).all(), f"hubert round: losses {lv}")
+        seen["losses"] = lv.tolist()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.DISPATCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    states, hist, w = run_federated(
+        cfg, clients=HUBERT_CLIENTS, rounds=1, local_steps=HUBERT_STEPS,
+        batch=HUBERT_BATCH, seq=HUBERT_SEQ, lr=3e-4, iid=False,
+        weighting="fedtgan", device=dev, on_round=on_round)
+    round_s = seen["done"] - t0
+    counts = {k: seen["counts"].get(k, 0) for k in want}
+    refs = {k: v for k, v in seen["counts"].items() if k.endswith("_ref")}
+    check(not refs, f"hubert round: the plain route ran on the card: {refs}")
+    check(counts == want, f"hubert round: launches {counts}, expected {want}")
+    check(abs(float(w.sum()) - 1.0) < 1e-5, f"hubert weights sum {w.sum()}")
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    frames = per_round * HUBERT_BATCH * HUBERT_SEQ
+    n_params = sum(t.numel() for t in tree_leaves(states[0].params))
+
+    step_fn = make_train_step(Transformer(cfg), lm_optimizer(3e-4))
+    streams = client_token_streams(TokenDatasetSpec(cfg.vocab, HUBERT_SEQ),
+                                   HUBERT_CLIENTS, HUBERT_BATCH, HUBERT_STEPS,
+                                   iid=False, seed=7)
+    w_dev = torch.as_tensor(w, device=dev)
+    make = batch_maker(cfg, dev, 7)
+
+    def one_round():
+        return federated_round(states, step_fn, streams, w_dev,
+                               make_batch=make)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    one_round()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    busy_ms, top = device_busy(one_round, top=6)
+    check(busy_ms > 0.0, "hubert: the profiler saw no device time")
+    busy = busy_ms / (wall * 1e3)
+    print(f"hubert round: hubert-xlarge, {n_params} parameters, "
+          f"{cfg.n_layers} layers, "
+          f"hd {cfg.hd}, bidirectional, frame inputs, bf16, remat; "
+          f"{HUBERT_CLIENTS} clients x {HUBERT_STEPS} local steps of "
+          f"{HUBERT_BATCH} x {HUBERT_SEQ} frames, fedtgan weights "
+          f"{np.round(w, 6).tolist()}; losses {seen['losses']}; "
+          f"{round_s:.2f} s for the round with its setup, "
+          f"{frames / round_s:.0f} frames/s; launches {counts} (gated); "
+          f"clients bit-identical after the merge; peak memory "
+          f"{peak_gb:.2f} GB above the phase's start; one more round "
+          f"{wall * 1e3:.1f} ms wall = {frames / wall:.0f} frames/s, device "
+          f"busy {busy_ms:.1f} ms (busy share {busy:.3f}); top kernels: "
+          + "; ".join(f"{n} {ms:.1f} ms x{c}" for n, ms, c in top))
+    del states, step_fn
+    torch.cuda.empty_cache()
+
+    # float32, cut to HUBERT_F32_LAYERS layers: the float32 library's hd-80
+    # instance, non-causal, against the plain route
+    cfg32 = dataclasses.replace(get_config("hubert-xlarge"), dtype="float32",
+                                n_layers=HUBERT_F32_LAYERS)
+    params = Transformer(cfg32).init(seed=19, device=dev)
+    g = torch.Generator(dev).manual_seed(19)
+    feats = torch.randn((1, HUBERT_SEQ, cfg32.d_model), device=dev,
+                        generator=g)
+    batch = {"features": feats}
+    with torch.no_grad():
+        plain, _ = Transformer(cfg32).forward(params, batch)
+        with ops.dispatch_scope() as d:
+            flash, _ = Transformer(dataclasses.replace(
+                cfg32, use_flash_kernel=True)).forward(params, batch)
+            torch.cuda.synchronize()
+    check(dict(d) == {"flash_attention_fwd": cfg32.n_layers},
+          f"hubert float32: launches {dict(d)}")
+    err = float((flash - plain).abs().max())
+    scale = float(plain.abs().max())
+    tol = 1e-5 * max(1.0, scale) * cfg32.n_layers
+    check(bool(torch.isfinite(flash).all()), "hubert float32: not finite")
+    check(err <= tol, f"hubert float32 flash vs plain logits: {err:.3g} > "
+          f"{tol:.3g}")
+    print(f"hubert float32 ({cfg32.n_layers} layers, 1 x {HUBERT_SEQ} "
+          f"frames, TF32 off): flash kernels (float32 library, hd 80, "
+          f"bidirectional) vs gqa_attention max abs err {err:.3g} (tol "
+          f"{tol:.3g}: 1e-5 of max|logit| {scale:.3g} per layer)")
+    del params
+    torch.cuda.empty_cache()
+    return {"params": n_params, "round_s": round_s,
+            "frames_per_round": frames, "frames_per_s": frames / round_s,
+            "losses": seen["losses"], "weights": w.tolist(),
+            "launches": counts, "peak_memory_gb": peak_gb,
+            "extra_round_wall_ms": wall * 1e3, "extra_round_busy_ms": busy_ms,
+            "extra_round_busy_share": busy, "top_kernels": top,
+            "f32_max_abs_err": err, "f32_tol": tol}
+
+
+def families_card_vs_cpu(dev) -> dict:
+    """Phase 19 (d): each family's smoke config in float32 (TF32 off) with
+    the same parameters and inputs on the card and on the CPU: the
+    forward's logits and aux loss, every MoE call's routing, a prefill
+    and ``FAMILY_CPU_STEPS`` greedy decode steps."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Transformer, tree_leaves, tree_unflatten
+
+    cpu = torch.device("cpu")
+    out = {}
+    ops.DISPATCH_COUNTS.clear()
+    for name in FAMILIES:
+        cfg = dataclasses.replace(get_smoke_config(name), dtype="float32")
+        model = Transformer(cfg)
+        p_cpu = model.init(seed=3, device=cpu)
+        _gates_on(p_cpu)
+        p_dev = tree_unflatten(p_cpu, [t.detach().to(dev)
+                                       for t in tree_leaves(p_cpu)])
+        g = torch.Generator().manual_seed(3)
+        B, S = 2, 24
+        arrays = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g)}
+        if not cfg.embed_inputs:
+            arrays["features"] = torch.randn((B, S + FAMILY_CPU_STEPS,
+                                              cfg.d_model), generator=g)
+        if cfg.xattn_tokens:
+            arrays["vision"] = torch.randn((B, cfg.xattn_tokens, cfg.d_model),
+                                           generator=g)
+        # (a prefill of the first S positions, frames S.. for the decode)
+        tol = (dict(rtol=5e-3, atol=5e-3) if "mamba" in cfg.pattern
+               else dict(rtol=1e-4, atol=1e-4))
+        res = {}
+        for where, params in (("cpu", p_cpu), ("card", p_dev)):
+            dv = cpu if where == "cpu" else dev
+            a = {k: v.to(dv) for k, v in arrays.items()}
+            fwd = {"labels": a["tokens"]}
+            if cfg.embed_inputs:
+                fwd["tokens"] = a["tokens"]
+            else:
+                fwd["features"] = a["features"][:, :S]
+            if "vision" in a:
+                fwd["vision"] = a["vision"]
+            with torch.no_grad(), MoERecorder(routing=True) as rec:
+                logits, aux = model.forward(params, fwd)
+                pre = {k: v for k, v in fwd.items() if k != "labels"}
+                last, caches = model.prefill(params, pre, S + FAMILY_CPU_STEPS)
+                steps, toks = [last], []
+                for t in range(FAMILY_CPU_STEPS):
+                    tok = torch.argmax(last, dim=-1)[:, None]
+                    toks.append(tok[:, 0].cpu())
+                    step = ({"token": tok} if cfg.embed_inputs else
+                            {"features": a["features"][:, S + t:S + t + 1]})
+                    if "vision" in a:
+                        step["vision"] = a["vision"]
+                    last, caches = model.decode_step(params, caches, step)
+                    steps.append(last)
+            res[where] = (logits.cpu(), aux.cpu(), [s.cpu() for s in steps],
+                          torch.stack(toks, 1),
+                          [(r.expert_idx.cpu(), r.keep.cpu())
+                           for _, _, r in rec.calls])
+        (lc, ac, sc, tc, rc), (lg, ag, sg, tg, rg) = res["cpu"], res["card"]
+        err = float((lg - lc).abs().max())
+        check(torch.allclose(lg, lc, rtol=1e-4, atol=1e-4),
+              f"{name} card vs CPU logits: {err:.3g}")
+        check(torch.allclose(ag, ac, rtol=1e-5, atol=1e-7),
+              f"{name} card vs CPU aux {float(ag)} / {float(ac)}")
+        check(len(rg) == len(rc) and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(rg, rc)), f"{name}: MoE routing differs")
+        step_err = max(float((x - y).abs().max()) for x, y in zip(sg, sc))
+        check(all(torch.allclose(x, y, **tol) for x, y in zip(sg, sc)),
+              f"{name} card vs CPU prefill / decode logits: {step_err:.3g}")
+        check(torch.equal(tg, tc) or not cfg.embed_inputs,
+              f"{name}: greedy tokens differ: {tg} / {tc}")
+        print(f"family card vs CPU: {name} smoke, float32: logits max abs "
+              f"err {err:.3g} (rtol = atol = 1e-4), aux {float(ag):.6g} / "
+              f"{float(ac):.6g}, {len(rg)} MoE calls' routing equal, prefill "
+              f"+ {FAMILY_CPU_STEPS} decode steps max abs err {step_err:.3g} "
+              f"(rtol = atol = {tol['atol']:g}), greedy tokens equal")
+        out[name] = {"logits_err": err, "step_err": step_err,
+                     "moe_calls": len(rg)}
+    refs = {k: v for k, v in ops.DISPATCH_COUNTS.items() if k.endswith("_ref")}
+    cards = {k: v for k, v in ops.DISPATCH_COUNTS.items()
+             if not k.endswith("_ref")}
+    check(not cards, f"families card vs CPU: kernel launches {cards}")
+    return {"families": out, "plain_calls": refs}
+
+
+def families_phase(dev) -> dict:
+    """Phase 19, the rest of the model families at full width: MoE and
+    hybrid serving, cross-attention serving, hubert's federated round
+    with the flash kernels at hd 80, and each family's card against the
+    CPU."""
+    from repro_torch.kernels import ops
+    out = {"serve": {}}
+    for i, (name, cuts, prompt_len) in enumerate(FAMILY_SERVE):
+        out["serve"][name] = serve_family(dev, name, cuts, prompt_len, 40 + i)
+    ops.DISPATCH_COUNTS.clear()
+    out["hubert"] = hubert_phase(dev)
+    out["launches"] = out["hubert"]["launches"]
+    out["card_vs_cpu"] = families_card_vs_cpu(dev)
+    print(f"phase 19 launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2099,11 +2529,11 @@ def main() -> int:
     hgmma = {}
     for entry, kernel in SM90_KERNELS.items():
         mine = {fn: n for fn, n in counts.items() if kernel in fn}
-        check(len(mine) == 3 and all(mine.values()),
-              f"{entry}: HGMMA per instantiation {mine}, expected three "
-              "kernels (hd 32, 64, 128) each with some")
+        check(len(mine) == 4 and all(mine.values()),
+              f"{entry}: HGMMA per instantiation {mine}, expected four "
+              "kernels (hd 32, 64, 80, 128) each with some")
         hgmma[entry] = sorted(mine.values())
-    print(f"HGMMA instructions per bf16 flash kernel (hd 32, 64, 128 "
+    print(f"HGMMA instructions per bf16 flash kernel (hd 32, 64, 80, 128 "
           f"instantiations, cuobjdump -sass): {hgmma}")
     counts = hgmma_counts(_build.library_path("mlstm_chunk_sm90"))
     for kernel in MLSTM_TC_KERNELS:
@@ -2390,6 +2820,23 @@ def main() -> int:
                                    retain_graph=True)
     pairs = BH * Sf * (Sf + 1) // 2          # visible (query, key) pairs
     elems = BH * Sf * hd
+    # the flash kernels at hubert-xlarge's shape: hd 80, bidirectional,
+    # bf16
+    B8, H8, hd8 = HUBERT_BATCH, 16, 80
+    BH8 = B8 * H8
+    f8q, f8k, f8v, f8do = (torch.randn((B8, H8, Sf, hd8), device=dev,
+                                       generator=gf).bfloat16()
+                           for _ in range(4))
+    mask8 = {"causal": False, "window": None, "kv_len": Sf}
+    f8out, f8lse = flash_fwd_cuda(f8q, f8k, f8v, **mask8)
+    f8delta = torch.sum(f8do.float() * f8out.float(), dim=-1)
+    bwd8 = (f8q, f8k, f8v, f8do, f8lse, f8delta)
+    l8 = [t.detach().clone().requires_grad_() for t in (f8q, f8k, f8v)]
+    lib8_out = F.scaled_dot_product_attention(*l8)
+
+    def lib8_bwd():  # the library's dq + dk/dv pair at hd 80
+        return torch.autograd.grad(lib8_out, l8, f8do, retain_graph=True)
+    pairs8, elems8 = BH8 * Sf * Sf, BH8 * Sf * hd8
 
     def close_bf16(a, b):    # one bfloat16 ulp where f32 results straddle
         d = (a.float() - b.float()).abs()
@@ -2513,6 +2960,37 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:216",
              launches=lm_launches["flash_attention_dkv"],
              shape=f"({LM_BATCH}, 9, {Sf}, {hd}) bf16, causal"),
+        dict(name="flash_attention_fwd (hd 80)", stem="flash_attention_sm90",
+             products=(4, 2),
+             kern=lambda: flash_fwd_cuda(f8q, f8k, f8v, **mask8),
+             plain=lambda: plain.flash_attention_fwd_ref(f8q, f8k, f8v,
+                                                         **mask8),
+             library=lambda: F.scaled_dot_product_attention(f8q, f8k, f8v),
+             compare=cmp_fwd, bytes=2 * 4 * elems8 + 4 * BH8 * Sf,
+             ops=2 * 2 * hd8 * pairs8, peak=PEAK_BF16_OPS_PER_S,
+             replaces="src/repro/kernels/flash_attention.py:167",
+             launches=None,
+             shape=f"({B8}, {H8}, {Sf}, {hd8}) bf16, bidirectional"),
+        dict(name="flash_attention_dq (hd 80)", stem="flash_attention_sm90",
+             products=(4, 3),
+             kern=lambda: flash_dq_cuda(*bwd8, **mask8),
+             plain=lambda: plain.flash_attention_dq_ref(*bwd8, **mask8),
+             library=lib8_bwd, compare=cmp_grads,
+             bytes=2 * 4 * elems8 + 8 * BH8 * Sf + 4 * elems8,
+             ops=3 * 2 * hd8 * pairs8, peak=PEAK_BF16_OPS_PER_S,
+             replaces="src/repro/kernels/flash_attention.py:199",
+             launches=None,
+             shape=f"({B8}, {H8}, {Sf}, {hd8}) bf16, bidirectional"),
+        dict(name="flash_attention_dkv (hd 80)", stem="flash_attention_sm90",
+             products=(6, 4),
+             kern=lambda: flash_dkv_cuda(*bwd8, **mask8),
+             plain=lambda: plain.flash_attention_dkv_ref(*bwd8, **mask8),
+             library=lib8_bwd, compare=cmp_grads,
+             bytes=2 * 4 * elems8 + 8 * BH8 * Sf + 8 * elems8,
+             ops=4 * 2 * hd8 * pairs8, peak=PEAK_BF16_OPS_PER_S,
+             replaces="src/repro/kernels/flash_attention.py:216",
+             launches=None,
+             shape=f"({B8}, {H8}, {Sf}, {hd8}) bf16, bidirectional"),
     ]
     edges_case = dict(
         name="weighted_agg (edges)", stem="weighted_agg",
@@ -2633,7 +3111,8 @@ def main() -> int:
                    if "f32_bound_ms" in case else {})})
         lib_txt = ("no single PyTorch call computes it" if lib is None else
                    f"library call {lib_ms * 1e3:.2f} us"
-                   + (" (the dq + dk/dv pair)" if lib is lib_bwd else ""))
+                   + (" (the dq + dk/dv pair)" if lib in (lib_bwd, lib8_bwd)
+                      else ""))
         cold_txt = ("" if not extra else
                     f"; cold L2: kernel {extra['cold_ms'] * 1e3:.2f} us, "
                     f"library {extra['library_cold_ms'] * 1e3:.2f} us")
@@ -2644,13 +3123,15 @@ def main() -> int:
         if "products" in case:
             done, least = case["products"]
             timing[name]["products"] = [done, least]
-            cold_txt += (f"; products {done} against the least {least} "
+            cold_txt += (f"; products {done:g} against the least {least} "
                          f"({done / least:.2f}x), bound on the least")
+        n_txt = ("off the main path" if case["launches"] is None
+                 else case["launches"])
         print(f"kernel {name} [{case['shape']}]: {ms * 1e3:.2f} us, plain "
               f"{plain_ms * 1e3:.2f} us ({source}); per call with launch "
               f"{call_ms * 1e3:.2f} us, plain {plain_call_ms * 1e3:.2f} us "
               f"(CUDA events); bound {b_ms * 1e3:.2f} us ({b_by}); max abs "
-              f"err {err:.3g} (tol {tol_txt}); launches {case['launches']}; "
+              f"err {err:.3g} (tol {tol_txt}); launches {n_txt}; "
               f"{lib_txt}{cold_txt}")
     sweep = activation_layouts(dev, cfg.tau, (px, pu, kinds))
     print("segment_activations forward by layout (device time per call, "
@@ -2701,6 +3182,13 @@ def main() -> int:
         k["launches_phase18"] = record["matrix_scale"]["launches"].get(
             k["name"], 0)
     lap("matrix and scale")
+
+    # ---- 19. the rest of the model families ---------------------------
+    record["families"] = families_phase(dev)
+    for k in kernels:
+        k["launches_phase19"] = record["families"]["launches"].get(
+            k["name"], 0)
+    lap("model families")
     record["phase_s"] = phase_s
     print(f"phase seconds {phase_s}")
 

@@ -6,8 +6,7 @@ CTGAN config.
 ``get_config(name)`` returns the full-size :class:`ModelConfig`;
 ``get_smoke_config(name)`` the reduced same-family variant of the CPU
 tests (2 layers, d_model <= 512).  The port's
-:class:`repro_torch.models.Transformer` runs the dense attention configs
-and raises ``NotImplementedError`` for the others.
+:class:`repro_torch.models.Transformer` runs every one of them.
 """
 from __future__ import annotations
 

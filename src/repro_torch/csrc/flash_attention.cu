@@ -487,12 +487,15 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // Calls F<float, HD>(args...) for float32 inputs (bf16 = 0) of head dim
-// 32, 64 or 128; cudaErrorInvalidValue for bfloat16 (flash_attention_sm90.cu
-// takes those) or another head dim.
+// 32, 64, 80 (hubert-xlarge's 1280 / 16) or 128; cudaErrorInvalidValue
+// for bfloat16 (flash_attention_sm90.cu takes those) or another head dim.
+// The tiles need only HD % 16 == 0 (CW = HD / 16 columns a thread); at
+// HD 80 the dk/dv kernel's shared memory is 116,736 bytes.
 #define FLASH_DISPATCH(F, ...)                                            \
   switch (bf16 ? 0 : hd) {                                                \
     case 32: return F<float, 32>(__VA_ARGS__);                            \
     case 64: return F<float, 64>(__VA_ARGS__);                            \
+    case 80: return F<float, 80>(__VA_ARGS__);                            \
     case 128: return F<float, 128>(__VA_ARGS__);                          \
     default: return (int)cudaErrorInvalidValue;                           \
   }

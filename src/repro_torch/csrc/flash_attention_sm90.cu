@@ -28,9 +28,10 @@
 //   Instead the last warp to finish with a stage refills it with the tile
 //   two ahead, so the copy runs under the other stage's products.  The
 //   tensor maps are 3-D over (hd, S, B*H), so a tile past a head's S is
-//   zero-filled by the hardware, and swizzled by the row's bytes (64 B at
-//   hd 32, 128 B at hd 64 and 128, where a tile is two panels of 64
-//   columns).
+//   zero-filled by the hardware, and swizzled by the panel's row bytes
+//   (64 B at hd 32; 128 B at hd 64 and 128, where a tile is two panels of
+//   64 columns; 32 B at hd 80, hubert-xlarge's, five panels of 16 columns,
+//   whose products over the head dim are m64n80k16).
 // - The first products (S = Q K^T, dP = dO V^T, and in dk/dv S^T = K Q^T,
 //   dP^T = V dO^T) read both operands from shared memory.  Their bf16
 //   products are exact, so only the order of the float32 sums differs from
@@ -558,12 +559,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- launchers -------------------------------------------------------------
 
-// (B*H, S, hd) bf16 rows, boxes of `rows` rows x one panel of columns.
+// (B*H, S, hd) bf16 rows, boxes of `rows` rows x one panel of columns
+// (Geo<hd>::PW), swizzled over the panel's row bytes.
 int map_rows(CUtensorMap* map, const void* p, int bh, int s, int hd,
              int rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return kNoEncoder;
-  const int pw = hd < 64 ? hd : 64;
+  const int pw = hd % 64 == 0 ? 64 : hd % 32 == 0 ? 32 : 16;
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)s, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)s * hd * 2};
   const cuuint32_t box[3] = {(cuuint32_t)pw, (cuuint32_t)rows, 1};
@@ -571,7 +573,9 @@ int map_rows(CUtensorMap* map, const void* p, int bh, int s, int hd,
   const CUresult r = enc(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      pw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      pw == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : pw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                 : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
 }
@@ -597,7 +601,9 @@ struct Shape {
 
 // Tiles: the forward's key tiles of BN (64 at hd 128); dq's key tiles of
 // 64; dk/dv's query tiles of BQ (32 at hd 128, to keep its two
-// accumulators in registers).
+// accumulators in registers).  At hd 80 the hd-64 tiles fit (242 and 205
+// registers, no spill) and ran faster than the hd-128 ones in a same-call
+// A/B on the card.
 template <int HD>
 int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
         Shape a, cudaStream_t stream) {
@@ -669,13 +675,14 @@ Shape shape(int bh, int sq, int sk, int kv_len, int causal, int window,
   return Shape{bh, sq, sk, kv > 0 ? kv : 0, causal, window, scale};
 }
 
-// Calls F<hd>(args...) for bf16 inputs of head dim 32, 64 or 128;
+// Calls F<hd>(args...) for bf16 inputs of head dim 32, 64, 80 or 128;
 // cudaErrorInvalidValue for float32 (flash_attention.cu's) or another dim.
 #define SM90_DISPATCH(F, ...)                                       \
   if (!bf16) return (int)cudaErrorInvalidValue;                     \
   switch (hd) {                                                     \
     case 32: return F<32>(__VA_ARGS__);                             \
     case 64: return F<64>(__VA_ARGS__);                             \
+    case 80: return F<80>(__VA_ARGS__);                             \
     case 128: return F<128>(__VA_ARGS__);                           \
     default: return (int)cudaErrorInvalidValue;                     \
   }

@@ -15,12 +15,15 @@ namespace {
 // A tile of R rows x HD bf16 columns lies in shared memory as HD / PW
 // panels of R rows x PW columns, each row SW bytes, swizzled over SW-byte
 // rows: the layout TMA writes and `wgmma` reads back through a descriptor
-// of the same swizzle.
+// of the same swizzle.  PW is the widest of 64, 32 and 16 columns that
+// divides HD: two panels of 64 at hd 128, one of 32 at hd 32, five of 16
+// (32-byte rows) at hd 80.
 template <int HD>
 struct Geo {
-  static constexpr int PW = HD < 64 ? HD : 64;
+  static constexpr int PW = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
   static constexpr int SW = PW * 2;
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // 128 B or 64 B
+  static constexpr uint64_t LAYOUT =            // 128 B, 64 B or 32 B
+      SW == 128 ? 1 : SW == 64 ? 2 : 3;
   __host__ __device__ static constexpr uint32_t bytes(int rows) {
     return rows * HD * 2;
   }
@@ -144,6 +147,7 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define D16(i) D4(i), D4(i + 4), D4(i + 8), D4(i + 12)
 #define D32(i) D16(i), D16(i + 16)
 #define D64(i) D32(i), D32(i + 32)
+#define D40(i) D32(i), D4(i + 32), D4(i + 36)
 
 // d (64 x N, this thread's N/2 floats) = A B (+ d if acc): A 64 x 16 and
 // B 16 x N from shared memory, K-major, or MN-major where TA / TB is 1
@@ -215,6 +219,20 @@ __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<80>(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, "
+      "%43}, %44, p, 1, 1, 1;\n}\n"
+      : D40(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
                                               uint64_t b) {
   asm volatile(
@@ -234,6 +252,7 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
 #undef D16
 #undef D32
 #undef D64
+#undef D40
 
 // ---- registers and fragments ----------------------------------------------
 

@@ -18,11 +18,15 @@ tree (``embed``, ``final_norm``, ``layers/pos0/pre_norm``,
 dict; ``lm_train_state_from_reference`` takes a flattened ``TrainState``
 (``.params/...``, ``.opt_state/.mu/...``, ``.opt_state/.nu/...``,
 ``.opt_state/.count``, ``.step``) and returns the port's
-:class:`repro_torch.models.TrainState`; both take xLSTM trees too
-(``layers/pos0/mlstm/...``, ``layers/pos1/slstm/slstm_r``).
+:class:`repro_torch.models.TrainState`; both take every block kind
+(``layers/pos0/mlstm/...``, ``layers/pos1/slstm/slstm_r``,
+``layers/pos0/mamba/ssm_a``, ``layers/pos4/xattn_gate``, the MoE's
+``layers/pos0/moe/router`` and ``layers/pos0/moe/experts/w_gate`` (E, D,
+F) stacks) and the frame inputs' ``in_proj``.
 ``lm_caches_from_reference`` takes the flattened decode caches of the
 reference's ``Transformer.prefill`` or ``init_caches`` (``pos0/.C``,
-``pos1/.h``, ``pos0/.k``, ``pos0/.length``, ..., each with a leading
+``pos1/.h``, ``pos0/.k``, ``pos0/.length``, ``pos0/.conv_buf``, a
+cross-attention block's placeholder ``pos4``, ..., each with a leading
 ``n_rep`` axis) and returns the port's cache list.  With these, the two
 packages compute from the same state.  ``gan_flat_index`` maps the flat
 ``(P, D)`` update stack that the port's merge reads to the reference's
@@ -41,7 +45,7 @@ from .gan.ctgan import CTGANConfig, Discriminator, Generator
 from .gan.trainer import GANState
 from .models import ModelConfig, TrainState, tree_items, tree_leaves
 from .models.attention import KVCache
-from .models.ssm import MLSTMState, SLSTMState
+from .models.ssm import MambaState, MLSTMState, SLSTMState
 from .optim import AdamState
 from .tabular.encoders import ColumnSpec, LabelEncoder, TableEncoders
 from .tabular.vgm import VGMParams
@@ -217,16 +221,18 @@ def _lm_leaf(flat: Mapping[str, np.ndarray], key: str, index: int | None,
 
 
 # leaves the reference initializes in float32 whatever the model's dtype
-_F32_LEAVES = ("gate_i", "gate_f", "gate_o", "slstm_r")
+_F32_LEAVES = ("gate_i", "gate_f", "gate_o", "slstm_r", "router", "ssm_dt",
+               "ssm_dt_bias", "ssm_a", "ssm_d", "xattn_gate")
 
 
 def _lm_tree(flat: Mapping[str, np.ndarray], prefix: str, cfg: ModelConfig,
              device: torch.device) -> dict:
     """The port's LM parameter dict (or one Adam moment tree) from the
-    reference's keys under ``prefix``.  Norm scales, the mLSTM gates and
-    the sLSTM recurrent matrix are float32, as the reference initializes
-    them; every other leaf takes the model's dtype (checkpoints store
-    bfloat16 as float32)."""
+    reference's keys under ``prefix``.  Norm scales, the mLSTM gates, the
+    sLSTM recurrent matrix, the MoE router, Mamba's dt, A and D and the
+    cross-attention gate are float32, as the reference initializes them;
+    every other leaf takes the model's dtype (checkpoints store bfloat16
+    as float32)."""
     model_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     keys = [k[len(prefix):] for k in flat if k.startswith(prefix)]
     tree: dict = {}
@@ -287,24 +293,30 @@ def lm_caches_from_reference(flat: Mapping[str, np.ndarray],
                              device: torch.device | str = "cuda") -> list:
     """The port's decode caches (one ``{"pos<i>": ...}`` per repetition)
     from the reference's flattened cache tree: ``KVCache`` (k, v in the
-    model's dtype, int32 length), ``MLSTMState`` and ``SLSTMState``
-    (float32), every leaf with a leading ``n_rep`` axis."""
+    model's dtype, int32 length), ``MambaState`` (float32 h, bfloat16
+    conv_buf), ``MLSTMState`` and ``SLSTMState`` (float32), and a
+    cross-attention block's (B,) int32 placeholder, every leaf with a
+    leading ``n_rep`` axis."""
     dev = resolve_device(device)
     model_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     kinds = {"attn": (KVCache, {"k": model_dtype, "v": model_dtype,
                                 "length": torch.int32}),
+             "mamba": (MambaState, {"conv_buf": torch.bfloat16}),
              "mlstm": (MLSTMState, {}), "slstm": (SLSTMState, {})}
+
+    def leaf(key, r, dtype):
+        return torch.from_numpy(np.array(flat[key][r], order="C")).to(dev,
+                                                                      dtype)
     caches = []
     for r in range(cfg.n_rep):
         rep = {}
         for pos, kind in enumerate(cfg.pattern):
-            if kind not in kinds:
-                raise NotImplementedError(
-                    f"{cfg.name}: no port cache for {kind!r} blocks (ROADMAP)")
+            if kind == "xattn":
+                rep[f"pos{pos}"] = leaf(f"pos{pos}", r, torch.int32)
+                continue
             state, dtypes = kinds[kind]
             rep[f"pos{pos}"] = state(*(
-                torch.from_numpy(np.array(flat[f"pos{pos}/.{f}"][r], order="C")
-                                 ).to(dev, dtypes.get(f, torch.float32))
+                leaf(f"pos{pos}/.{f}", r, dtypes.get(f, torch.float32))
                 for f in state._fields))
         caches.append(rep)
     return caches

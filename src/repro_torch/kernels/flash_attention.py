@@ -6,7 +6,8 @@ type, launches the tensor-core kernels of ``csrc/flash_attention_sm90.cu``
 (``wgmma`` fed by TMA, P and dS split into bf16 terms for the second
 products); float32 launches the CUDA-core kernels of
 ``csrc/flash_attention.cu``.  Both libraries export the same three C
-entries.
+entries, each instantiated at head dims 32, 64, 80 (hubert-xlarge's) and
+128.
 
 :class:`FlashAttention` works on padded, head-matched ``(B, H, S, hd)``
 inputs, as the reference's custom VJP does
@@ -32,7 +33,7 @@ from ._build import DISPATCH_COUNTS
 
 # head dims and element types the kernels are instantiated for, and the
 # library (csrc/<stem>.cu) of each element type
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _STEMS = {torch.float32: "flash_attention",
           torch.bfloat16: "flash_attention_sm90"}

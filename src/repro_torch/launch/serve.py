@@ -7,8 +7,10 @@ LM mode (batched one-pass prefill, then token-by-token decode):
       --batch 4 --prompt-len 2048 --gen 32 [--smoke] [--device cpu]
 
 the counterpart of the JAX package's ``prefill_and_decode``
-(``launch/serve.py``).  Prompts and weights are random from ``--seed``;
+(``launch/serve.py``).  Prompts, weights and the stubbed vision
+frontend's embeddings (llama-3.2-vision) are random from ``--seed``;
 xLSTM's mLSTM layers run their prefill through the ``mlstm_chunk`` kernel.
+Encoder-only hubert has no decode step and is refused.
 
 Tabular mode:
 
@@ -77,7 +79,8 @@ def prefill_and_decode(cfg: ModelConfig, *, batch: int, prompt_len: int,
                        gen_tokens: int, seed: int = 0,
                        temperature: float = 1.0, replay_prefill: bool = False,
                        device: torch.device | str = "cuda",
-                       params: dict | None = None, prompts=None
+                       params: dict | None = None, prompts=None,
+                       vision: torch.Tensor | None = None
                        ) -> tuple[np.ndarray, dict]:
     """One-pass prefill (``Transformer.prefill``), then token-by-token
     decode, without autograd.  The first decode input is the prefill's
@@ -86,7 +89,10 @@ def prefill_and_decode(cfg: ModelConfig, *, batch: int, prompt_len: int,
     takes the argmax at ``temperature=0``.  ``replay_prefill`` fills the
     caches through the decode path instead.  ``params`` and ``prompts``
     ((batch, prompt_len) token ids) replace the random weights and prompts
-    drawn from ``seed``.
+    drawn from ``seed``.  A model with cross-attention reads the stubbed
+    vision frontend's embeddings (batch, xattn_tokens, d_model) at the
+    prefill and at every decode step, as the reference's does: ``vision``,
+    or standard normal draws from ``seed`` rounded to bfloat16.
 
     Returns the generated tokens (batch, gen_tokens) and stats:
     ``prefill_s``, ``decode_s``, ``tok_per_s`` (host clock, the card
@@ -106,6 +112,13 @@ def prefill_and_decode(cfg: ModelConfig, *, batch: int, prompt_len: int,
         if not isinstance(prompts, torch.Tensor):
             prompts = torch.from_numpy(np.array(prompts, dtype=np.int64))
         prompts = prompts.to(dev).long()
+        extras = {}
+        if cfg.xattn_tokens:
+            if vision is None:
+                vision = torch.randn((batch, cfg.xattn_tokens, cfg.d_model),
+                                     generator=seeded_generator(dev, seed, 2),
+                                     device=dev).to(torch.bfloat16)
+            extras["vision"] = vision.to(dev)
 
         _sync(dev)
         t0 = time.perf_counter()
@@ -115,9 +128,11 @@ def prefill_and_decode(cfg: ModelConfig, *, batch: int, prompt_len: int,
                       for rep in model.init_caches(batch, max_len, device=dev)]
             for t in range(prompt_len):
                 logits, caches = serve(params, caches,
-                                       {"token": prompts[:, t:t + 1]})
+                                       {"token": prompts[:, t:t + 1],
+                                        **extras})
         else:
-            logits, caches = model.prefill(params, {"tokens": prompts},
+            logits, caches = model.prefill(params,
+                                           {"tokens": prompts, **extras},
                                            max_len)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
@@ -127,7 +142,7 @@ def prefill_and_decode(cfg: ModelConfig, *, batch: int, prompt_len: int,
         out = []
         t0 = time.perf_counter()
         for _ in range(gen_tokens):
-            logits, caches = serve(params, caches, {"token": tok})
+            logits, caches = serve(params, caches, {"token": tok, **extras})
             finite &= torch.isfinite(logits).all()
             if temperature > 0:
                 probs = torch.softmax(logits.float() / temperature, dim=-1)

@@ -1,7 +1,9 @@
 """Language-model training entry points, the port's copy of the JAX
 package's ``launch/train.py``.
 
-Two modes:
+Every block kind and input kind of ``Transformer`` trains: frame
+inputs (hubert) and cross-attention (llama-3.2-vision) take the stubbed
+frontends' random embeddings (:func:`batch_maker`).  Two modes:
 
 * ``--federated``: Fed-TGAN rounds over P simulated clients: the §4.2
   weights from token-frequency statistics, local Adam steps on every
@@ -45,21 +47,55 @@ from ..models import (TrainState, Transformer, make_train_step, tree_leaves,
 from ..optim import adam, cosine_schedule
 
 
+# the seed stream of the stubbed frontends' frame and vision embeddings
+FRONTEND_STREAM = 777
+
+
 def _batch_dict(tokens: np.ndarray, device: torch.device) -> dict:
-    """The step's batch: the tokens are their own labels (no shift), as in
-    the reference's LM rounds.  (Frame-embedding and vision inputs are not
-    ported: ``Transformer`` refuses those configs.)"""
+    """A token step's batch: the tokens are their own labels (no shift),
+    as in the reference's LM rounds."""
     tk = torch.as_tensor(np.ascontiguousarray(tokens), device=device)
     return {"tokens": tk, "labels": tk}
 
 
+def batch_maker(cfg, device: torch.device | str, seed: int = 0
+                ) -> Callable[[np.ndarray], dict]:
+    """``tokens (B, S) -> batch`` for ``cfg``'s inputs, the reference's
+    ``_batch_dict``: the tokens are the labels; a model of frame inputs
+    (``embed_inputs=False``, hubert) takes ``features`` (B, S, d_model)
+    instead of tokens, and a model with cross-attention ``vision`` (B,
+    xattn_tokens, d_model): the stubbed frontends' embeddings, standard
+    normal draws in float32 rounded to bfloat16, from one generator
+    seeded with (``seed``, ``FRONTEND_STREAM``) and drawn anew each
+    step."""
+    dev = resolve_device(device)
+    g = seeded_generator(dev, seed, FRONTEND_STREAM)
+
+    def stub(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def make(tokens: np.ndarray) -> dict:
+        b = _batch_dict(tokens, dev)
+        B, S = tokens.shape
+        if not cfg.embed_inputs:
+            b["features"] = stub(B, S, cfg.d_model)
+            del b["tokens"]
+        if cfg.xattn_tokens:
+            b["vision"] = stub(B, cfg.xattn_tokens, cfg.d_model)
+        return b
+    return make
+
+
 def run_centralized(cfg, *, steps, batch, seq, lr, seed=0, log_every=5,
-                    device: torch.device | str = "cuda", init_params=None):
+                    device: torch.device | str = "cuda", init_params=None,
+                    make_batch: Callable[[np.ndarray], dict] | None = None):
     """``steps`` Adam steps (b1 0.9, b2 0.95, global-norm clip 1.0, cosine
     schedule with warm-up ``max(steps // 10, 1)``) on one synthetic
     stream.  ``init_params`` (the port's parameter dict) replaces the
-    seeded initialization, so a test can start from the reference's.
-    Returns (state, history)."""
+    seeded initialization, and ``make_batch`` (``tokens -> batch``) the
+    stubbed frontends' draws of :func:`batch_maker`, so a test can start
+    from the reference's parameters and feed its inputs.  Returns (state,
+    history)."""
     dev = resolve_device(device)
     model = Transformer(cfg)
     opt = adam(cosine_schedule(lr, warmup=max(steps // 10, 1), total=steps),
@@ -70,10 +106,11 @@ def run_centralized(cfg, *, steps, batch, seq, lr, seed=0, log_every=5,
     step_fn = make_train_step(model, opt)
     data = synthetic_token_batches(TokenDatasetSpec(cfg.vocab, seq), batch,
                                    steps, seed=seed)
+    make_batch = make_batch or batch_maker(cfg, dev, seed)
     hist = []
     t0 = time.perf_counter()
     for s in range(steps):
-        state, m = step_fn(state, _batch_dict(data[s], dev))
+        state, m = step_fn(state, make_batch(data[s]))
         if (s + 1) % log_every == 0 or s == steps - 1:
             loss = float(m["loss"])
             hist.append({"step": s + 1, "loss": loss,
@@ -107,9 +144,12 @@ def dp_merge(flat: torch.Tensor, start: torch.Tensor, weights: torch.Tensor,
 def federated_round(states: list, step_fn, tokens, weights: torch.Tensor, *,
                     dp: DPConfig | None = None,
                     dp_noise: torch.Tensor | None = None,
-                    generator: torch.Generator | None = None) -> torch.Tensor:
+                    generator: torch.Generator | None = None,
+                    make_batch: Callable[[np.ndarray], dict] | None = None
+                    ) -> torch.Tensor:
     """One global round in place: client i takes one step of ``step_fn``
-    on each of its ``tokens[i]`` (local_steps, B, S) batches, then every
+    on each of its ``tokens[i]`` (local_steps, B, S) batches (made into a
+    step's batch by ``make_batch``, default the token batch), then every
     client's parameters are replaced by the weighted merge (ONE
     ``weighted_agg`` launch).  With ``dp`` the merge is :func:`dp_merge`
     from client 0's parameters before the round (the broadcast model
@@ -117,13 +157,14 @@ def federated_round(states: list, step_fn, tokens, weights: torch.Tensor, *,
     from ``generator``.  Returns the (P, local_steps) losses, on the
     device."""
     dev = weights.device
+    make_batch = make_batch or (lambda tk: _batch_dict(tk, dev))
     start = None
     if dp is not None:
         start = flatten_stacked([tree_leaves(states[0].params)])[0]
     losses = torch.empty((len(states), len(tokens[0])), device=dev)
     for i in range(len(states)):
         for e, tk in enumerate(tokens[i]):
-            states[i], m = step_fn(states[i], _batch_dict(tk, dev))
+            states[i], m = step_fn(states[i], make_batch(tk))
             losses[i, e] = m["loss"]
     trees = [tree_leaves(st.params) for st in states]
     if dp is None:
@@ -144,7 +185,8 @@ def lm_optimizer(lr):
 def run_federated(cfg, *, clients, rounds, local_steps, batch, seq, lr,
                   iid=True, seed=0, weighting="fedtgan", dp=None,
                   device: torch.device | str = "cuda", init_params=None,
-                  on_round: Callable | None = None):
+                  on_round: Callable | None = None,
+                  make_batch: Callable[[np.ndarray], dict] | None = None):
     """Fed-TGAN rounds on a language model: every client takes
     ``local_steps`` Adam steps (b1 0.9, b2 0.95, clip 1.0) on its own
     stream, then the parameters (not the moments: each client keeps its
@@ -159,8 +201,11 @@ def run_federated(cfg, *, clients, rounds, local_steps, batch, seq, lr,
     (eps, delta) is printed at the end (every client takes part in every
     round: q = 1, one release a round).
 
-    Clients run one after another on ``device``.  ``init_params`` replaces
-    the seeded initialization (a test hands in the reference's);
+    Clients run one after another on ``device``.  A model of frame or
+    vision inputs draws them per step (:func:`batch_maker`); the client
+    weights come from the token streams, which are the labels.
+    ``init_params`` replaces the seeded initialization (a test hands in
+    the reference's) and ``make_batch`` the frontends' draws;
     ``on_round(r, states, metrics)`` sees every round after its merge,
     ``metrics["loss"]`` a (P, local_steps) tensor.  Returns (states,
     history, weights)."""
@@ -192,13 +237,14 @@ def run_federated(cfg, *, clients, rounds, local_steps, batch, seq, lr,
         states.append(TrainState(tree_unflatten(params, own), opt.init(own),
                                  0))
     step_fn = make_train_step(model, opt)
+    make_batch = make_batch or batch_maker(cfg, dev, seed)
 
     hist = []
     t0 = time.perf_counter()
     for r in range(rounds):
         toks = [s[r * local_steps:(r + 1) * local_steps] for s in streams]
         losses = federated_round(
-            states, step_fn, toks, w_dev, dp=dp,
+            states, step_fn, toks, w_dev, dp=dp, make_batch=make_batch,
             generator=None if dp is None else seeded_generator(
                 dev, seed, DP_STREAM, r))
         loss = float(torch.mean(losses))

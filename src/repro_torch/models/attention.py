@@ -7,7 +7,8 @@ builds it and the one-token decode against it.
 Layouts are the reference's: activations ``(B, S, H, hd)`` inside the
 block, ``(B, H, S, hd)`` at the flash kernel, caches ``(B, S_max, K,
 hd)``.  The prefill attends through :func:`gqa_attention`, as the
-reference's does.  Cross-attention is not ported yet (ROADMAP).
+reference's does, and so does cross-attention onto the frontend's
+(vision) embeddings: no RoPE, no mask.
 """
 from __future__ import annotations
 
@@ -90,7 +91,10 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig,
-                   dtype: torch.dtype) -> dict:
+                   dtype: torch.dtype, cross: bool = False) -> dict:
+    """wq, wk, wv, wo (and the QKV biases under ``cfg.qkv_bias``); a
+    cross-attention block (``cross``) draws the same four matrices, its
+    keys and values projecting the frontend's embeddings."""
     D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {"wq": dense_init(generator, D, H * hd, dtype),
          "wk": dense_init(generator, D, K * hd, dtype),
@@ -148,6 +152,20 @@ def attention_block(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
                             causal=cfg.causal, window=cfg.sliding_window,
                             q_chunk=q_chunk)
     return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
+
+
+def cross_attention_block(p: dict, x: torch.Tensor, vision: torch.Tensor, *,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention of x (B, Sq, D) onto the frontend's embeddings
+    vision (B, Sk, D), llama-3.2-vision style: no RoPE, no causality over
+    the context, through :func:`gqa_attention` in chunks of 4,096
+    queries."""
+    q, k, v = _project_qkv(p, x, vision, cfg)
+    Sq, Sk = x.shape[1], vision.shape[1]
+    out = gqa_attention(q, k, v, q_pos=torch.arange(Sq, device=x.device),
+                        k_pos=torch.arange(Sk, device=x.device),
+                        causal=False, window=None, q_chunk=4096)
+    return out.reshape(x.shape[0], Sq, -1) @ p["wo"]
 
 
 class KVCache(NamedTuple):

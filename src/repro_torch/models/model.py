@@ -1,20 +1,28 @@
 """The language model, its train step and its serving path, the port's
-copy of the JAX package's ``models/model.py`` for stacks of attention,
-mLSTM and sLSTM blocks.
+copy of the JAX package's ``models/model.py``.
 
 ``embed -> n_rep x pattern -> norm -> head``: ``pattern`` is a short tuple
-of block kinds (``attn``, ``mlstm``, ``slstm``), each block followed by a
-dense SwiGLU FFN when ``d_ff > 0``.  Parameters are a nested dict of
-tensors, keyed as the reference's tree: ``embed``, ``final_norm``,
-``lm_head`` (untied only) and ``layers``, a list with one ``{"pos0": {...},
-"pos1": {...}}`` per repetition of the pattern where the reference stacks
-each leaf over a leading ``n_rep`` axis.  Decode caches mirror
-``layers``: a list of ``{"pos<i>": KVCache | MLSTMState | SLSTMState}``.
-With ``cfg.remat`` each repetition runs under ``torch.utils.checkpoint``
-(non-reentrant), the reference's ``jax.checkpoint`` of the scanned body:
-the backward recomputes the forward, so a flash-attention forward
-launches twice per layer and training step.  The reference's
-``ShardHints`` are TPU-mesh tooling and are not ported.
+of block kinds (``attn``, ``xattn``, ``mamba``, ``mlstm``, ``slstm``),
+each block followed by a dense SwiGLU or a mixture-of-experts FFN
+(``cfg.ffn_is_moe(pos)``) when ``d_ff > 0``.  Inputs are token ids, or,
+with ``embed_inputs=False`` (hubert), frame embeddings ``features`` (B, S,
+D) projected by ``in_proj``; cross-attention blocks read ``vision`` (B,
+n, D), the frontend's embeddings.  Parameters are a nested dict of
+tensors, keyed as the reference's tree: ``embed``, ``in_proj`` (frame
+inputs only), ``final_norm``, ``lm_head`` (untied only) and ``layers``, a
+list with one ``{"pos0": {...}, "pos1": {...}}`` per repetition of the
+pattern where the reference stacks each leaf over a leading ``n_rep``
+axis.  A cross-attention block keeps its projections under ``attn`` and
+a float32 scalar ``xattn_gate`` (0 at init, so ``tanh`` switches it off
+until trained).  Decode caches mirror ``layers``: a list of ``{"pos<i>":
+KVCache | MambaState | MLSTMState | SLSTMState | (B,) int32}``, the last a
+cross-attention block's placeholder (its keys and values are recomputed
+from ``vision`` at every step).  With ``cfg.remat`` each repetition runs
+under ``torch.utils.checkpoint`` (non-reentrant), the reference's
+``jax.checkpoint`` of the scanned body: the backward recomputes the
+forward, so a flash-attention forward launches twice per layer and
+training step.  The reference's ``ShardHints`` are TPU-mesh tooling and
+are not ported.
 """
 from __future__ import annotations
 
@@ -28,9 +36,7 @@ from . import attention as attn
 from . import ssm
 from .config import ModelConfig
 from .layers import dense_init, rms_norm
-from .moe import dense_ffn, init_dense_ffn
-
-BLOCK_KINDS = ("attn", "mlstm", "slstm")
+from .moe import dense_ffn, init_dense_ffn, init_moe, moe_ffn
 
 
 def tree_items(tree, prefix: str = "") -> Iterator[tuple[str, torch.Tensor]]:
@@ -66,26 +72,10 @@ def tree_unflatten(like, leaves):
 
 
 class Transformer:
-    """A language model of attention, mLSTM and sLSTM blocks.  Configs that
-    need a piece the port does not have yet raise ``NotImplementedError``
-    naming it."""
+    """The language model of every block kind and input kind of the
+    reference."""
 
     def __init__(self, cfg: ModelConfig):
-        missing = []
-        other = [k for k in cfg.pattern if k not in BLOCK_KINDS]
-        if other:
-            missing.append(f"blocks {tuple(other)} (mamba in models/ssm.py, "
-                           "cross-attention in models/attention.py)")
-        if cfg.n_experts > 0:
-            missing.append("the mixture-of-experts FFN (models/moe.py)")
-        if cfg.xattn_tokens:
-            missing.append("cross-attention (models/attention.py)")
-        if not cfg.embed_inputs:
-            missing.append("frame-embedding inputs (embed_inputs=False)")
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: the port does not have " + "; ".join(missing)
-                + " yet (ROADMAP)")
         self.cfg = cfg
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
@@ -94,28 +84,46 @@ class Transformer:
         """Random parameters drawn on ``device`` from ``seed``, every leaf
         a tensor that requires grad.  The draws are not the reference's:
         carry its parameters across with
-        :func:`repro_torch.interop.lm_params_from_reference`."""
+        :func:`repro_torch.interop.lm_params_from_reference`.  An unknown
+        block kind raises ``ValueError``."""
         cfg, dtype = self.cfg, self.dtype
         dev = resolve_device(device)
         g = seeded_generator(dev, seed)
         D = cfg.d_model
-        params: dict = {
-            "embed": (torch.randn((cfg.vocab, D), generator=g, device=dev)
-                      * 0.02).to(dtype)}
+        params: dict = {}
+        if not cfg.embed_inputs:
+            params["in_proj"] = dense_init(g, D, D, dtype)
+        # the token table, or with frame inputs the output classes' table
+        params["embed"] = (torch.randn((cfg.vocab, D), generator=g,
+                                       device=dev) * 0.02).to(dtype)
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(g, D, cfg.vocab, dtype)
         params["final_norm"] = torch.ones((D,), device=dev)
-        init_block = {"attn": attn.init_attention, "mlstm": ssm.init_mlstm,
-                      "slstm": ssm.init_slstm}
         layers = []
         for _ in range(cfg.n_rep):
             rep = {}
             for pos, kind in enumerate(cfg.pattern):
-                blk = {"pre_norm": torch.ones((D,), device=dev),
-                       kind: init_block[kind](g, cfg, dtype)}
+                blk = {"pre_norm": torch.ones((D,), device=dev)}
+                if kind == "attn":
+                    blk["attn"] = attn.init_attention(g, cfg, dtype)
+                elif kind == "xattn":
+                    blk["attn"] = attn.init_attention(g, cfg, dtype,
+                                                      cross=True)
+                    blk["xattn_gate"] = torch.zeros((), device=dev)
+                elif kind == "mamba":
+                    blk["mamba"] = ssm.init_mamba(g, cfg, dtype)
+                elif kind == "mlstm":
+                    blk["mlstm"] = ssm.init_mlstm(g, cfg, dtype)
+                elif kind == "slstm":
+                    blk["slstm"] = ssm.init_slstm(g, cfg, dtype)
+                else:
+                    raise ValueError(kind)
                 if cfg.d_ff > 0:
                     blk["ffn_norm"] = torch.ones((D,), device=dev)
-                    blk["ffn"] = init_dense_ffn(g, cfg, dtype)
+                    if cfg.ffn_is_moe(pos):
+                        blk["moe"] = init_moe(g, cfg, dtype)
+                    else:
+                        blk["ffn"] = init_dense_ffn(g, cfg, dtype)
                 rep[f"pos{pos}"] = blk
             layers.append(rep)
         params["layers"] = layers
@@ -126,31 +134,57 @@ class Transformer:
     # ------------------------------------------------------------------
     # full sequence
     # ------------------------------------------------------------------
-    def _ffn(self, blk: dict, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.d_ff > 0:
-            x = x + dense_ffn(blk["ffn"], rms_norm(x, blk["ffn_norm"],
-                                                   self.cfg.norm_eps))
-        return x
+    def _ffn(self, blk: dict, x: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The block's FFN on the residual x, and the MoE's aux loss (None
+        for a dense FFN or none)."""
+        if self.cfg.d_ff == 0:
+            return x, None
+        h = rms_norm(x, blk["ffn_norm"], self.cfg.norm_eps)
+        if "moe" in blk:
+            y, metrics = moe_ffn(blk["moe"], h, self.cfg)
+            return x + y, metrics.aux_loss
+        return x + dense_ffn(blk["ffn"], h), None
 
-    def _apply_rep(self, rep: dict, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
-        """One repetition of the pattern over the full sequence."""
+    def _cross(self, blk: dict, h: torch.Tensor,
+               vision: torch.Tensor) -> torch.Tensor:
+        y = attn.cross_attention_block(blk["attn"], h, vision, cfg=self.cfg)
+        return y * torch.tanh(blk["xattn_gate"]).to(y.dtype)
+
+    def _apply_rep(self, rep: dict, x: torch.Tensor, positions: torch.Tensor,
+                   vision: torch.Tensor | None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One repetition of the pattern over the full sequence; returns
+        the residual and the repetition's summed MoE aux loss."""
         cfg = self.cfg
+        aux = torch.zeros((), device=x.device)
         for pos, kind in enumerate(cfg.pattern):
             blk = rep[f"pos{pos}"]
             h = rms_norm(x, blk["pre_norm"], cfg.norm_eps)
             if kind == "attn":
                 y = attn.attention_block(blk["attn"], h, cfg=cfg,
                                          positions=positions)
+            elif kind == "xattn":
+                y = self._cross(blk, h, vision)
+            elif kind == "mamba":
+                y = ssm.mamba_block(blk["mamba"], h, cfg)
             elif kind == "mlstm":
                 y = ssm.mlstm_block(blk["mlstm"], h, cfg)
             else:
                 y = ssm.slstm_block(blk["slstm"], h, cfg)
-            x = self._ffn(blk, x + y)
-        return x
+            x, a = self._ffn(blk, x + y)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def _embed(self, params: dict, batch: dict) -> torch.Tensor:
-        return params["embed"][batch["tokens"]]
+        if self.cfg.embed_inputs:
+            return params["embed"][batch["tokens"]]
+        return batch["features"].to(self.dtype) @ params["in_proj"]
+
+    def _vision(self, batch: dict) -> torch.Tensor | None:
+        vision = batch.get("vision")
+        return None if vision is None else vision.to(self.dtype)
 
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
@@ -160,23 +194,29 @@ class Transformer:
 
     def forward(self, params: dict, batch: dict
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward.  Returns (logits (B, S, V), moe_aux),
-        the aux loss 0 without experts."""
+        """Full-sequence forward.  ``batch``: ``tokens`` (B, S) or, with
+        frame inputs, ``features`` (B, S, D); ``vision`` (B, n, D) for
+        cross-attention.  Returns (logits (B, S, V), the MoE aux loss
+        summed over the layers, 0 without experts)."""
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
+        vision = self._vision(batch)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), device=x.device)
         for rep in params["layers"]:
             if remat:
-                x = checkpoint(self._apply_rep, rep, x, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(self._apply_rep, rep, x, positions, vision,
+                                  use_reentrant=False)
             else:
-                x = self._apply_rep(rep, x, positions)
-        return self._head(params, x), torch.zeros((), device=x.device)
+                x, a = self._apply_rep(rep, x, positions, vision)
+            aux = aux + a
+        return self._head(params, x), aux
 
     def loss(self, params: dict, batch: dict
              ) -> tuple[torch.Tensor, dict]:
         """Mean token cross-entropy in float32 (masked by
-        ``batch["loss_mask"]`` where given) plus the router aux term."""
+        ``batch["loss_mask"]`` where given) plus ``router_aux_weight``
+        times the MoE aux loss."""
         logits, aux = self.forward(params, batch)
         lf = logits.float()
         logz = torch.logsumexp(lf, dim=-1)
@@ -198,10 +238,14 @@ class Transformer:
                     device: torch.device | str = "cuda") -> list:
         """Empty caches, one ``{"pos<i>": ...}`` per repetition: KV caches
         of ``seq_len`` slots for attention, zero recurrent states for the
-        mLSTM and sLSTM blocks."""
+        Mamba, mLSTM and sLSTM blocks, a (batch,) int32 placeholder for
+        cross-attention."""
         cfg, dev = self.cfg, resolve_device(device)
         make = {"attn": lambda: attn.init_kv_cache(cfg, batch, seq_len,
                                                    self.dtype, device=dev),
+                "xattn": lambda: torch.zeros((batch,), dtype=torch.int32,
+                                             device=dev),
+                "mamba": lambda: ssm.init_mamba_state(cfg, batch, device=dev),
                 "mlstm": lambda: ssm.init_mlstm_state(cfg, batch, device=dev),
                 "slstm": lambda: ssm.init_slstm_state(cfg, batch, device=dev)}
         return [{f"pos{pos}": make[kind]() for pos, kind in
@@ -211,11 +255,14 @@ class Transformer:
                 ) -> tuple[torch.Tensor, list]:
         """One-pass prompt processing: the full-sequence forward that also
         returns decode-ready caches (KV rings, recurrent states).
-        ``batch``: ``{"tokens": (B, S)}``; ``max_len`` sizes the KV caches.
-        Returns (last-position logits (B, V), caches)."""
+        ``batch``: ``{"tokens": (B, S)}`` (or ``features``) and ``vision``
+        for cross-attention; ``max_len`` sizes the KV caches.  Returns
+        (last-position logits (B, V), caches)."""
         cfg = self.cfg
         x = self._embed(params, batch)
+        B = x.shape[0]
         positions = torch.arange(x.shape[1], device=x.device)
+        vision = self._vision(batch)
         caches = []
         for rep in params["layers"]:
             new = {}
@@ -226,23 +273,33 @@ class Transformer:
                     y, cache = attn.attention_prefill(
                         blk["attn"], h, cfg=cfg, positions=positions,
                         max_len=max_len)
+                elif kind == "xattn":
+                    y = self._cross(blk, h, vision)
+                    cache = torch.zeros((B,), dtype=torch.int32,
+                                        device=x.device)
+                elif kind == "mamba":
+                    y, cache = ssm.mamba_block(blk["mamba"], h, cfg,
+                                               return_state=True)
                 elif kind == "mlstm":
                     y, cache = ssm.mlstm_block(blk["mlstm"], h, cfg,
                                                return_state=True)
                 else:
                     y, cache = ssm.slstm_block(blk["slstm"], h, cfg,
                                                return_state=True)
-                x = self._ffn(blk, x + y)
+                x, _ = self._ffn(blk, x + y)
                 new[f"pos{pos}"] = cache
             caches.append(new)
         return self._head(params, x[:, -1, :]), caches
 
     def decode_step(self, params: dict, caches: list, batch: dict
                     ) -> tuple[torch.Tensor, list]:
-        """One-token decode.  ``batch``: ``{"token": (B, 1)}``.  Returns
-        (logits (B, V), the next caches)."""
+        """One-token decode.  ``batch``: ``{"token": (B, 1)}`` (or
+        ``features`` (B, 1, D)) and ``vision`` for cross-attention.
+        Returns (logits (B, V), the next caches)."""
         cfg = self.cfg
-        x = params["embed"][batch["token"]]
+        x = (params["embed"][batch["token"]] if cfg.embed_inputs else
+             batch["features"].to(self.dtype) @ params["in_proj"])
+        vision = self._vision(batch)
         new_caches = []
         for rep, rep_caches in zip(params["layers"], caches, strict=True):
             new = {}
@@ -252,11 +309,15 @@ class Transformer:
                 if kind == "attn":
                     y, cache = attn.attention_decode(blk["attn"], h, cache,
                                                      cfg=cfg)
+                elif kind == "xattn":
+                    y = self._cross(blk, h, vision)
+                elif kind == "mamba":
+                    y, cache = ssm.mamba_decode(blk["mamba"], h, cache, cfg)
                 elif kind == "mlstm":
                     y, cache = ssm.mlstm_decode(blk["mlstm"], h, cache, cfg)
                 else:
                     y, cache = ssm.slstm_decode(blk["slstm"], h, cache, cfg)
-                x = self._ffn(blk, x + y)
+                x, _ = self._ffn(blk, x + y)
                 new[f"pos{pos}"] = cache
             new_caches.append(new)
         return self._head(params, x[:, -1, :]), new_caches
@@ -270,14 +331,19 @@ class TrainState(NamedTuple):
 
 def make_train_step(model: Transformer, optimizer):
     """One optimizer step on a batch: the loss's gradient w.r.t. every
-    parameter, then ``optimizer.update``, which writes the new values into
-    the parameter tensors in place.  Returns (new state, metrics); the
+    parameter (0 for one the loss does not read), then
+    ``optimizer.update``, which writes the new values into the parameter
+    tensors in place.  Returns (new state, metrics); the
     metrics are 0-dim tensors on the device (reading them waits for it)."""
     def train_step(state: TrainState, batch: dict):
         leaves = tree_leaves(state.params)
         with torch.enable_grad():
             loss, metrics = model.loss(state.params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # a leaf the loss never reads (frame inputs' output-class table)
+        # has gradient 0, as in the reference
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, leaves)]
         opt_state = optimizer.update(grads, state.opt_state, leaves)
         metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
         return TrainState(state.params, opt_state, state.step + 1), metrics

@@ -1,6 +1,12 @@
-"""xLSTM's recurrent blocks, the port's copy of the mLSTM and sLSTM parts
-of the JAX package's ``models/ssm.py``.
+"""The recurrent blocks, the port's copy of the JAX package's
+``models/ssm.py``: Mamba (jamba) and xLSTM's mLSTM and sLSTM.
 
+* Mamba: a depthwise causal convolution, then the selective scan, a
+  diagonal linear recurrence over a (B, d_inner, state) float32 state,
+  run as a Python loop over time (the reference's ``lax.scan``; it has no
+  Pallas kernel, and a fused scan kernel would be new work, ROADMAP).
+  ``mamba_decode`` advances the state by one token through a bfloat16
+  window of the last ``ssm_conv`` inputs, as the reference's does.
 * mLSTM, the matrix-memory cell: ``mlstm_block`` runs it chunkwise
   (quadratic within a chunk, recurrent across chunks) through
   :func:`repro_torch.kernels.ops.mlstm_chunk`, the hand-written CUDA
@@ -14,8 +20,8 @@ of the JAX package's ``models/ssm.py``.
   over time here (the reference's ``lax.scan``; its ``unroll=8`` changes
   no value).
 
-States are NamedTuples of float32 tensors, as the reference's.  Mamba is
-not ported yet (ROADMAP).
+States are NamedTuples of float32 tensors, as the reference's, but for
+``MambaState.conv_buf``, bfloat16 in any model dtype.
 """
 from __future__ import annotations
 
@@ -28,6 +34,114 @@ import torch.nn.functional as F
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import dense_init
+
+
+# ===========================================================================
+# Mamba
+# ===========================================================================
+
+def init_mamba(generator: torch.Generator, cfg: ModelConfig,
+               dtype: torch.dtype) -> dict:
+    D = cfg.d_model
+    di = D * cfg.ssm_expand
+    st = cfg.ssm_state
+    dev = generator.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    conv = torch.randn((di, cfg.ssm_conv), generator=generator, **f32)
+    return {
+        "ssm_in": dense_init(generator, D, di, dtype),
+        "ssm_gate": dense_init(generator, D, di, dtype),
+        "ssm_conv": (conv / math.sqrt(cfg.ssm_conv)).to(dtype),
+        "ssm_bc": dense_init(generator, di, 2 * st, dtype),
+        "ssm_dt": dense_init(generator, di, 1, torch.float32),
+        "ssm_dt_bias": torch.full((di,), -2.0, **f32),     # softplus ~ 0.12
+        "ssm_a": torch.log(torch.arange(1, st + 1, **f32).repeat(di, 1)),
+        "ssm_d": torch.ones((di,), **f32),
+        "ssm_out": dense_init(generator, di, D, dtype),
+    }
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """u (B, S, di), w (di, k): the depthwise causal convolution, summed
+    tap by tap in u's dtype, as the reference does."""
+    k, S = w.shape[1], u.shape[1]
+    pad = F.pad(u, (0, 0, k - 1, 0))
+    out = torch.zeros_like(u)
+    for i in range(k):
+        out = out + pad[:, i:i + S, :] * w[:, i][None, None, :]
+    return out
+
+
+class MambaState(NamedTuple):
+    h: torch.Tensor          # (B, di, st) float32
+    conv_buf: torch.Tensor   # (B, k-1, di) bfloat16, the last inputs
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, *,
+                     device: torch.device | str = "cuda") -> MambaState:
+    di = cfg.d_model * cfg.ssm_expand
+    return MambaState(
+        torch.zeros((batch, di, cfg.ssm_state), dtype=torch.float32,
+                    device=device),
+        torch.zeros((batch, cfg.ssm_conv - 1, di), dtype=torch.bfloat16,
+                    device=device))
+
+
+def _ssm_inputs(p: dict, uf: torch.Tensor, st: int):
+    """dt (softplus), B and C of the selective scan from the float32
+    convolved inputs, and A = -exp(ssm_a)."""
+    dt = F.softplus(uf * p["ssm_dt"][:, 0] + p["ssm_dt_bias"])
+    bc = uf @ p["ssm_bc"].float()
+    return dt, bc[..., :st], bc[..., st:], -torch.exp(p["ssm_a"])
+
+
+def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                return_state: bool = False):
+    """x (B, S, D) -> (B, S, D): the selective scan over the sequence, one
+    step per token.  ``return_state``: also the :class:`MambaState` after
+    the last token (the prefill path)."""
+    B, S, _ = x.shape
+    st = cfg.ssm_state
+    u_pre = x @ p["ssm_in"]                                    # (B, S, di)
+    z = x @ p["ssm_gate"]
+    uf = F.silu(_causal_conv(u_pre, p["ssm_conv"])).float()
+    dt, Bm, Cm, A = _ssm_inputs(p, uf, st)
+    dtu = dt * uf
+    h = torch.zeros((B, uf.shape[-1], st), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, t, :, None] * A)               # (B, di, st)
+        h = decay * h + dtu[:, t, :, None] * Bm[:, t, None, :]
+        ys.append(torch.sum(h * Cm[:, t, None, :], dim=-1))
+    y = torch.stack(ys, dim=1) + uf * p["ssm_d"]
+    out = (y.to(x.dtype) * F.silu(z)) @ p["ssm_out"]
+    if not return_state:
+        return out
+    k = cfg.ssm_conv
+    tail = (u_pre[:, S - (k - 1):] if S >= k - 1
+            else F.pad(u_pre, (0, 0, k - 1 - S, 0)))
+    return out, MambaState(h, tail.to(torch.bfloat16))
+
+
+def mamba_decode(p: dict, x: torch.Tensor, state: MambaState,
+                 cfg: ModelConfig) -> tuple[torch.Tensor, MambaState]:
+    """One-token step: x (B, 1, D) -> (B, 1, D) and the next state.  The
+    new input joins the window in the buffer's bfloat16, and the
+    convolution reads the window back in float32."""
+    st = cfg.ssm_state
+    u = (x @ p["ssm_in"])[:, 0]                                # (B, di)
+    z = (x @ p["ssm_gate"])[:, 0]
+    window = torch.cat([state.conv_buf,
+                        u[:, None, :].to(state.conv_buf.dtype)], dim=1)
+    conv = torch.sum(window.float() * p["ssm_conv"].t()[None].float(), dim=1)
+    uf = F.silu(conv)
+    dt, b_t, c_t, A = _ssm_inputs(p, uf, st)
+    decay = torch.exp(dt[..., None] * A)
+    h = decay * state.h + (dt * uf)[..., None] * b_t[:, None, :]
+    y = torch.sum(h * c_t[:, None, :], dim=-1) + uf * p["ssm_d"]
+    out = (y.to(x.dtype) * F.silu(z))[:, None, :] @ p["ssm_out"]
+    return out, MambaState(h, window[:, 1:])
 
 
 # ===========================================================================

@@ -37,7 +37,13 @@ versions as PyTorch's matrix products do: for unit normal inputs, float32
 outputs and lse within 2e-5 and gradients within 1e-4 of the largest
 plain gradient.  A bfloat16 output is the float32 result rounded once in
 each, so the two may sit one bfloat16 ulp apart where they straddle a
-rounding boundary: rtol 2^-7.
+rounding boundary: rtol 2^-7.  At head dim 80 the same gates hold for
+both libraries (bf16 in five 16-column panels, 32-byte swizzle);
+through ``ops.flash_attention`` with bf16 inputs against the float32 CPU
+route, outputs rtol 2^-7, atol 2^-8 and gradients (rounded to bf16 once)
+2^-7 of the largest.  ``moe_ffn`` on the card: two runs bit-identical
+(each scatter slot receives at most one nonzero row); in float32 the
+CPU's output within rtol = atol = 1e-5, the routing equal.
 
 The chunkwise mLSTM kernel sums its products as fused multiply-adds in
 tile order and its cumulative gate sum in step order, the plain version
@@ -392,6 +398,89 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
         assert got.dtype == torch.float32
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-4 * max(1.0, float(want.abs().max())))
+
+
+# head dim 80 (hubert-xlarge: 1280 / 16), bidirectional: each library's
+# hd-80 instance
+FLASH80_CASES = [
+    (1, 2, 1000, 80, False, None, 1000),  # ragged: a tile crosses S
+    (2, 3, 384, 80, False, None, 300),    # padded keys past kv_len
+    (4, 16, 2048, 80, False, None, 2048),  # hubert's training shape
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH80_CASES)
+def test_flash_kernels_at_head_dim_80_match_plain(cuda, case, dtype):
+    test_flash_kernels_match_plain(cuda, case, dtype)
+
+
+def test_flash_attention_autograd_at_head_dim_80(cuda):
+    """ops.flash_attention at hd 80, bidirectional, bf16 and float32: one
+    launch of each kernel, outputs and gradients against the CPU
+    route's."""
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(cuda).manual_seed(12)
+        q, k, v, ct = (torch.randn((2, 4, 200, 80), device=cuda,
+                                   generator=g).to(dtype) for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        with ops.dispatch_scope() as d:
+            out = ops.flash_attention(*leaves, causal=False)
+            torch.sum((out * ct).float()).backward()
+            torch.cuda.synchronize()
+        assert dict(d) == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
+                           "flash_attention_dkv": 1}
+        assert out.shape == (2, 4, 200, 80) and out.dtype == dtype
+        cpu = [t.cpu().float().requires_grad_() for t in (q, k, v)]
+        out_c = ops.flash_attention(*cpu, causal=False)
+        torch.sum(out_c * ct.cpu().float()).backward()
+        if dtype == torch.float32:
+            torch.testing.assert_close(out.cpu(), out_c.detach(), rtol=0,
+                                       atol=2e-5)
+        else:     # bf16 inputs, float32 plain: out and grads rounded once
+            torch.testing.assert_close(out.cpu().float(), out_c.detach(),
+                                       rtol=2 ** -7, atol=2 ** -8)
+        for a, b in zip(leaves, cpu):
+            assert a.grad.shape == b.grad.shape
+            scale = max(1.0, float(b.grad.abs().max()))
+            tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+            torch.testing.assert_close(a.grad.cpu().float(), b.grad, rtol=0,
+                                       atol=tol * scale)
+
+
+def test_moe_ffn_scatter_is_deterministic_on_the_card(cuda):
+    """Dropped choices are zeroed before the scatter, so every buffer slot
+    gets at most one nonzero row: two card runs of ``moe_ffn`` (bf16,
+    drops active) are bit-identical; in float32 the card's output is the
+    CPU's within 1e-5, with the same routing."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    base = dataclasses.replace(get_smoke_config("mixtral-8x22b"),
+                               capacity_factor=0.5)
+    for dtype in (torch.bfloat16, torch.float32):
+        p = moe.init_moe(torch.Generator(cuda).manual_seed(1), base, dtype)
+        x = torch.randn((4, 256, 256), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(2)).to(
+                            dtype)
+        out1, m1 = moe.moe_ffn(p, x, base)
+        out2, m2 = moe.moe_ffn(p, x, base)
+        torch.cuda.synchronize()
+        assert 0.0 < float(m1.dropped_fraction) < 1.0
+        assert torch.equal(out1, out2) and torch.equal(m1.aux_loss,
+                                                       m2.aux_loss)
+        if dtype == torch.float32:
+            pc = {"router": p["router"].cpu(),
+                  "experts": {k: t.cpu() for k, t in p["experts"].items()}}
+            out_c, m_c = moe.moe_ffn(pc, x.cpu(), base)
+            r, r_c = moe.moe_route(p, x, base), moe.moe_route(pc, x.cpu(),
+                                                               base)
+            assert torch.equal(r.expert_idx.cpu(), r_c.expert_idx)
+            assert torch.equal(r.keep.cpu(), r_c.keep)
+            torch.testing.assert_close(out1.cpu(), out_c, rtol=1e-5,
+                                       atol=1e-5)
+            assert float(m1.dropped_fraction) == float(m_c.dropped_fraction)
 
 
 def test_flash_library_follows_dtype(cuda, monkeypatch):

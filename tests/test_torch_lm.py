@@ -206,11 +206,13 @@ def test_train_step_gradients_match_reference(arch):
                                    err_msg=key)
 
 
-def test_transformer_refuses_what_is_not_ported():
-    for arch in ("mixtral-8x22b", "jamba-1.5-large-398b", "hubert-xlarge",
-                 "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="port does not have"):
-            Transformer(get_smoke_config(arch))
+def test_transformer_refuses_an_unknown_block_kind():
+    """Every block kind of the reference is ported; one it does not have
+    raises ``ValueError(kind)``, as its ``init`` does."""
+    cfg = dataclasses.replace(get_smoke_config("smollm-135m"),
+                              pattern=("attn", "conv"), n_layers=2)
+    with pytest.raises(ValueError, match="conv"):
+        Transformer(cfg).init(seed=0, device=CPU)
 
 
 # ---- Adam ---------------------------------------------------------------------
