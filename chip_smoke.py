@@ -2,8 +2,9 @@
 LM pre-training and xLSTM LM serving paths, the paper's baseline
 architectures, the degraded federation, differentially private
 federation with the privacy attacks, the paper's evaluation matrix
-with the federation at scale, and the MoE, Mamba, cross-attention and
-frame-input model families once on one CUDA card.
+with the federation at scale, the MoE, Mamba, cross-attention and
+frame-input model families, and the launch tooling (work counts, dry
+runs, the sharding policy) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -170,15 +171,31 @@ which stops the run with a non-zero exit on failure:
    Phase 14 also times the flash kernels at hubert's (4, 16, 2,048, 80)
    bf16, bidirectional (the hd-80 tensor-core instances), with SDPA
    beside.
+20. the launch tooling: (a) the LM step at phase 10's shape (smollm-135m,
+   flash kernels, bf16, remat, 4 x 2,048 tokens) counted by
+   ``repro_torch.counting.OpCounter`` on the card and on the meta device:
+   FLOPs by dtype and the card's bytes equal to meta's, the flash work
+   equal to the launches times ``kernels.work``'s least work (30 layers,
+   forwards x2 for remat); then timed (median of 5 steps after 2, each
+   ending in a synchronize), with ``launch.roofline``'s terms,
+   ``useful_flops_ratio`` in [0.5, 1] and ``mfu`` in (0, 1]; (b)
+   ``launch.dryrun`` (smollm-135m x train_4k, llama3-8b x decode_32k) and
+   ``launch.fed_dryrun --arch ctgan-paper --shard-map`` as a user runs
+   them, each in its own process on the fake backend, beside (a): OK, and
+   the train record's per-rank argument bytes equal to the specs' shards;
+   (c) smollm-135m's parameters distributed by
+   ``shardings.build_param_specs`` over ``make_host_mesh()`` (NCCL, one
+   rank) and one ``Transformer.prefill`` with ``ShardHints`` on 2 x 512
+   tokens: logits bit-identical to the plain-tensor prefill.
 
 Phases 3-5 are the serving main path, phase 6 the CTGAN training main
 path, phase 10 the LM main path, phase 11 the path of the single-column
 encode, phase 13 the xLSTM serving path, and each run of phases 15, 16,
-17, 18 and 19: the kernel launch counters are set to 0 just before each
-and read just after, every kernel of the path must have launched, and no
-plain-version counter may move.  The ``kernels`` line's ``launches`` are
-the main paths' counts; phases 17's, 18's and 19's are given apart as
-``launches_phase17``, ``launches_phase18`` and ``launches_phase19``.
+17, 18, 19 and 20: the kernel launch counters are set to 0 just before
+each and read just after, every kernel of the path must have launched,
+and no plain-version counter may move.  The ``kernels`` line's
+``launches`` are the main paths' counts; phases 17's, 18's, 19's and
+20's are given apart as ``launches_phase17`` to ``launches_phase20``.
 The last two lines of output are the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; a longer
 record goes to ``chiprun_out/chip_smoke.json``.
@@ -195,6 +212,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import os
 import re
 import shutil
 import statistics
@@ -283,6 +301,17 @@ FAMILIES = ("mixtral-8x22b", "llama4-maverick-400b-a17b",
 FAM_BATCH, FAM_GEN, XATTN_GATE = 2, 32, 0.7
 HUBERT_CLIENTS, HUBERT_STEPS, HUBERT_BATCH, HUBERT_SEQ = 2, 2, 4, 2048
 HUBERT_F32_LAYERS, FAMILY_CPU_STEPS = 4, 4
+# the launch tooling (phase 20): warm-up and timed steps of the counted LM
+# step; the dry runs as a user runs them, each in its own process; the
+# DTensor prefill's prompts and length
+LAUNCH_WARMUP, LAUNCH_TIMED = 2, 5
+DRYRUNS = (("dryrun_train", "repro_torch.launch.dryrun", "--arch",
+            "smollm-135m", "--shape", "train_4k"),
+           ("dryrun_decode", "repro_torch.launch.dryrun", "--arch",
+            "llama3-8b", "--shape", "decode_32k"),
+           ("fed_dryrun", "repro_torch.launch.fed_dryrun", "--arch",
+            "ctgan-paper", "--shard-map"))
+SHARD_BATCH, SHARD_SEQ = 2, 512
 
 
 def fail(msg: str):
@@ -578,14 +607,6 @@ def backward_and_decode_layouts(dev, tau, training, decode,
     return {"backward": backward, "decode": rows, "empty_kernel_ms": empty_ms}
 
 
-def encode_bytes_ops(n: int, q: int, k: int) -> tuple[int, int]:
-    """Bytes an encode must move (x, the params, the Gumbels read once;
-    the slots, or the column's alphas and betas, written once) and its
-    float operations, for ``n`` rows of ``q`` columns of ``k`` modes."""
-    return 4 * (n * q + 3 * q * k + n * q * k + n * q * (1 + k)), \
-        n * q * (9 * k + 4)
-
-
 def encode_shapes(dev) -> list:
     """Device time per call (:func:`kernel_ms`) of the table encode at
     ``ENCODE_TABLE_SHAPES`` and of the column encode at
@@ -596,6 +617,7 @@ def encode_shapes(dev) -> list:
     weights ~ 0.3 N(0, 1), Gumbels -log(-log u), not nudged away from
     ties."""
     import torch
+    from repro_torch.kernels import work
     from repro_torch.kernels.ref import vgm_encode_ref, vgm_encode_table_ref
     from repro_torch.kernels.vgm_encode import (vgm_encode_cuda,
                                                 vgm_encode_table_cuda)
@@ -628,7 +650,7 @@ def encode_shapes(dev) -> list:
             "ms": kernel_ms(lambda: kern(*args)),
             "trace_ms": traced_launch_ms(lambda: kern(*args), "vgm_encode"),
             "plain_ms": kernel_ms(lambda: plain(*args)),
-            "bound_ms": bound_ms(*encode_bytes_ops(n, q, K))[0]})
+            "bound_ms": bound_ms(*work.vgm_encode(n, q, K))[0]})
     return rows
 
 
@@ -669,6 +691,98 @@ def encode_shapes_main(tree: Path) -> int:
     rows = encode_shapes(torch.device("cuda", 0))
     print_encode_shapes(rows)
     print(json.dumps({"tree": str(tree), "encode_shapes": rows}))
+    return 0
+
+
+def host_paths_main(tree: Path, rounds: int = 5, drains: int = 5) -> int:
+    """The host-bound main paths alone, for the ``repro_torch`` of the
+    checkout at ``tree``: phase 10's LM global round (smollm-135m, flash
+    kernels, ``LM_CLIENTS`` x ``LM_STEPS`` steps of ``LM_BATCH`` x
+    ``LM_SEQ`` tokens) and phases 3-5's 16-request serving drain under
+    both schedulers, each timed on the wall clock after a warm-up.  Run in
+    turns on two checkouts in one call (parent, change, change, parent),
+    it compares what the host costs each path; the entry points it calls
+    are the same in every checkout that has them."""
+    import statistics
+
+    import torch
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False: "
+          "this script needs a card")
+    check((tree / "src" / "repro_torch").is_dir(),
+          f"no src/repro_torch in {tree}")
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.configs import ctgan_paper, get_config
+    from repro_torch.data import TokenDatasetSpec, client_token_streams
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import make_tenant
+    from repro_torch.launch.train import (federated_round, lm_optimizer,
+                                          run_federated)
+    from repro_torch.models import Transformer, make_train_step
+    from repro_torch.serve import (StreamingSynthesizer, TableRegistry,
+                                   ladder_from_sizes)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    print(card_line())
+    print(f"tree {tree}; kernel build: {_build.build_all():.2f} s")
+
+    cfg = dataclasses.replace(get_config("smollm-135m"), use_flash_kernel=True)
+    states, _, w = run_federated(
+        cfg, clients=LM_CLIENTS, rounds=1, local_steps=LM_STEPS,
+        batch=LM_BATCH, seq=LM_SEQ, lr=3e-4, iid=False, weighting="fedtgan",
+        device=dev)
+    step_fn = make_train_step(Transformer(cfg), lm_optimizer(3e-4))
+    streams = client_token_streams(TokenDatasetSpec(cfg.vocab, LM_SEQ),
+                                   LM_CLIENTS, LM_BATCH, LM_STEPS, iid=False,
+                                   seed=7)
+    w_dev = torch.as_tensor(w, device=dev)
+    lm_ms = []
+    for r in range(rounds + 1):                  # the first warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        federated_round(states, step_fn, streams, w_dev)
+        torch.cuda.synchronize()
+        if r:
+            lm_ms.append((time.perf_counter() - t0) * 1e3)
+    del states, step_fn
+    torch.cuda.empty_cache()
+
+    ccfg = ctgan_paper.CONFIG
+    registry = TableRegistry()
+    for seed, name in enumerate(("adult", "intrusion")):
+        _, enc, gen, encoded = make_tenant(name, n_rows=N_ROWS, cfg=ccfg,
+                                           seed=seed, device=dev)
+        registry.register(name, ccfg, enc, gen,
+                          ladder=ladder_from_sizes(SIZES), encoded=encoded,
+                          device=dev)
+    trace = [("adult" if i % 2 == 0 else "intrusion", SIZES[i % 3],
+              1000 + i, i % 4 >= 2) for i in range(16)]
+    serve_ms = {}
+    for sched in ("fifo", "continuous"):
+        server = StreamingSynthesizer(registry, scheduler=sched, device=dev)
+        server.warmup(conditional=None)
+        times = []
+        for d in range(drains + 1):              # the first warms up
+            for name, rows, seed, cond in trace:
+                server.submit(name, rows, seed=seed, conditional=cond)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resps = server.serve()
+            torch.cuda.synchronize()
+            check(len(resps) == 16, f"{sched}: {len(resps)} responses")
+            if d:
+                times.append((time.perf_counter() - t0) * 1e3)
+        serve_ms[sched] = times
+    out = {"tree": str(tree), "lm_round_ms": lm_ms,
+           "lm_round_median_ms": statistics.median(lm_ms),
+           **{f"serve_{k}_ms": v for k, v in serve_ms.items()},
+           **{f"serve_{k}_median_ms": statistics.median(v)
+              for k, v in serve_ms.items()}}
+    print(f"LM round ms {[round(x, 3) for x in lm_ms]}; serving drain ms "
+          + "; ".join(f"{k} {[round(x, 3) for x in v]}"
+                      for k, v in serve_ms.items()))
+    print(json.dumps(out))
     return 0
 
 
@@ -2112,8 +2226,8 @@ class MoERecorder:
         from repro_torch.models.moe import moe_route
         self.real = model_mod.moe_ffn
 
-        def record(p, x, cfg):
-            out, m = self.real(p, x, cfg)
+        def record(p, x, cfg, **kw):
+            out, m = self.real(p, x, cfg, **kw)
             self.calls.append((x.shape[1], m, moe_route(p, x, cfg)
                                if self.routing else None))
             return out, m
@@ -2477,6 +2591,237 @@ def families_phase(dev) -> dict:
     return out
 
 
+def launch_phase(dev) -> dict:
+    """Phase 20, the launch tooling on the card: (a) the roofline of the LM
+    step at full width, counted on the card and on meta, timed, with its
+    ``mfu``; (b) the dry runs as a user runs them; (c) the sharding policy
+    on a real CUDA mesh of one rank."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.counting import OpCounter
+    from repro_torch.kernels import ops, work
+    from repro_torch.launch import shardings
+    from repro_torch.launch.dryrun import spec_argument_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import (HLOStats, model_flops_for,
+                                             roofline_from_stats)
+    from repro_torch.launch.train import lm_optimizer
+    from repro_torch.models import (INPUT_SHAPES, InputShape, ShardHints,
+                                    TrainState, Transformer, make_train_step,
+                                    tree_leaves)
+    out: dict = {}
+    card = card_line()
+
+    # (b) first, in the background: three CPU processes, no card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    procs = {}
+    for name, *argv in DRYRUNS:
+        path = out_dir / f"phase20_{name}.jsonl"
+        path.unlink(missing_ok=True)
+        with open(path.with_suffix(".log"), "w") as log:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", *argv, "--out", str(path)], env=env,
+                stdout=log, stderr=subprocess.STDOUT), path)
+
+    # (a) the LM step: smollm-135m, the flash kernels, bf16, remat, one
+    # local step of LM_BATCH x LM_SEQ tokens (phase 10's shape)
+    cfg = dataclasses.replace(get_config("smollm-135m"), use_flash_kernel=True)
+    model = Transformer(cfg)
+    opt = lm_optimizer(3e-4)
+    step = make_train_step(model, opt)
+
+    def state_and_batch(device):
+        params = model.init(seed=0, device=device)
+        state = TrainState(params, opt.init(tree_leaves(params)), 0)
+        shape = (LM_BATCH, LM_SEQ)
+        tokens = (torch.empty(shape, dtype=torch.int32, device="meta")
+                  if device == "meta" else torch.randint(
+                      0, cfg.vocab, shape, dtype=torch.int32, device=device,
+                      generator=torch.Generator(device).manual_seed(11)))
+        return state, {"tokens": tokens, "labels": tokens}
+
+    state, batch = state_and_batch(dev)
+    torch.cuda.synchronize()
+    ops.DISPATCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    with OpCounter() as card_c:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    launches = dict(ops.DISPATCH_COUNTS)
+    check(not any(k.endswith("_ref") for k in launches),
+          f"phase 20: the plain route ran on the card: {launches}")
+    mstate, mbatch = state_and_batch("meta")
+    with OpCounter() as meta_c:
+        step(mstate, mbatch)
+    on_card, on_meta = (HLOStats.from_counter(card_c),
+                        HLOStats.from_counter(meta_c))
+
+    def device_bytes(stats, device):     # the card's traffic, or meta's
+        return (stats.bytes_by_device.get(device, 0)
+                + stats.bytes_by_device.get("kernels", 0))
+    host_bytes = on_card.bytes_by_device.get("cpu", 0)
+    if (on_card.flops_by_dtype != on_meta.flops_by_dtype
+            or device_bytes(on_card, "cuda") != device_bytes(on_meta, "meta")):
+        diff = {k: card_c.bytes_by_op.get(k, 0) - meta_c.bytes_by_op.get(k, 0)
+                for k in set(card_c.bytes_by_op) | set(meta_c.bytes_by_op)}
+        fail(f"phase 20: the card's count {on_card.flops_by_dtype} FLOPs, "
+             f"{device_bytes(on_card, 'cuda')} bytes differs from meta's "
+             f"{on_meta.flops_by_dtype}, {device_bytes(on_meta, 'meta')}; "
+             f"bytes by op, card - meta: "
+             f"{ {k: v for k, v in diff.items() if v} }")
+    reps = 2 if cfg.remat else 1
+    want = {"flash_attention_fwd": cfg.n_layers * reps,
+            "flash_attention_dq": cfg.n_layers,
+            "flash_attention_dkv": cfg.n_layers}
+    mask = {"causal": cfg.causal, "window": cfg.sliding_window,
+            "kv_len": LM_SEQ}
+    for name, n in want.items():
+        n_bytes, flops = work.flash_attention(
+            name.rsplit("_", 1)[1], LM_BATCH * cfg.n_heads, LM_SEQ, cfg.hd,
+            torch.bfloat16, **mask)
+        got = on_card.kernels.get(name, {})
+        check(launches.get(name) == n == got.get("launches")
+              and got.get("flops") == n * flops
+              and got.get("bytes") == n * n_bytes,
+              f"phase 20: {name}: {launches.get(name)} launches, counted "
+              f"{got}, expected {n} x ({flops} FLOPs, {n_bytes} bytes)")
+    times = []
+    for _ in range(LAUNCH_WARMUP + LAUNCH_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times[LAUNCH_WARMUP:])
+    shape = InputShape("train", LM_SEQ, LM_BATCH, "train")
+    rep = roofline_from_stats(on_card, arch="smollm-135m",
+                              shape=f"train {LM_BATCH}x{LM_SEQ}", mesh="1",
+                              chips=1, model_flops=model_flops_for(
+                                  cfg, shape, "train"))
+    roof = rep.as_dict(seconds=step_s)
+    check(0.5 <= roof["useful_flops_ratio"] <= 1.0,
+          f"phase 20: useful_flops_ratio {roof['useful_flops_ratio']}")
+    check(0.0 < roof["mfu"] <= 1.0, f"phase 20: mfu {roof['mfu']}")
+    print(f"LM step roofline: smollm-135m, {LM_BATCH} x {LM_SEQ} tokens, "
+          f"bf16, remat, flash kernels; FLOPs by dtype "
+          f"{on_card.flops_by_dtype} (card = meta, gated), model_flops "
+          f"{rep.model_flops:.6g} (6 N_active tokens), useful_flops_ratio "
+          f"{roof['useful_flops_ratio']:.4f}, HBM bytes "
+          f"{device_bytes(on_card, 'cuda'):.6g} (card = meta, gated; "
+          f"{host_bytes} bytes of host copies beside), compute_s "
+          f"{rep.compute_s * 1e3:.3f} ms, memory_s {rep.memory_s * 1e3:.3f} "
+          f"ms, flash launches {want} (work = launches x least work, "
+          f"gated); measured step {step_s * 1e3:.3f} ms (median of "
+          f"{LAUNCH_TIMED} after {LAUNCH_WARMUP} warm-up, each ending in a "
+          f"synchronize; steps {[round(t * 1e3, 3) for t in times]} ms); "
+          f"mfu {roof['mfu']:.5f}; the counted step took {count_s:.2f} s; "
+          f"{card}")
+    out["lm_step"] = {"roofline": roof, "flops_by_dtype":
+                      on_card.flops_by_dtype,
+                      "hbm_bytes": device_bytes(on_card, "cuda"),
+                      "host_bytes": host_bytes, "step_ms": step_s * 1e3,
+                      "steps_ms": [t * 1e3 for t in times],
+                      "kernels": on_card.kernels, "count_s": count_s,
+                      "card": card}
+    out["launches"] = launches
+    del state, mstate, batch
+    torch.cuda.empty_cache()
+
+    # (c) the sharding policy on a CUDA mesh: NCCL, one rank
+    pcfg = get_config("smollm-135m")        # plain attention, as served
+    plain_model = Transformer(pcfg)
+    params = plain_model.init(seed=0, device=dev)
+    tokens = torch.randint(0, pcfg.vocab, (SHARD_BATCH, SHARD_SEQ),
+                           dtype=torch.int32, device=dev,
+                           generator=torch.Generator(dev).manual_seed(12))
+    with torch.no_grad():
+        want_logits, _ = plain_model.prefill(params, {"tokens": tokens},
+                                             SHARD_SEQ)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh()
+            pol = shardings.ShardPolicy(mesh)
+            dparams = shardings.distribute(
+                params, mesh,
+                shardings.build_param_specs(params, pol, pcfg.n_experts))
+            batch = {"tokens": tokens}
+            dbatch = shardings.distribute(
+                batch, mesh, shardings.build_batch_specs(batch, pol))
+            sharded = Transformer(pcfg, shard=ShardHints(dp=pol.dp,
+                                                         tp=pol.tp))
+            with (torch.no_grad(), implicit_replication(),
+                  shardings.ReshardFallbacks() as fallbacks):
+                got, _ = sharded.prefill(dparams, dbatch, SHARD_SEQ)
+            placements = [str(p) for p in got.placements]
+            got = got.full_tensor()
+            mesh_txt = f"{mesh.device_type} {tuple(mesh.shape)}"
+        finally:
+            dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived phase 20")
+    check(torch.equal(got, want_logits),
+          f"phase 20: the DTensor prefill differs from the plain one by "
+          f"{float((got.float() - want_logits.float()).abs().max())}")
+    print(f"DTensor prefill: smollm-135m, {SHARD_BATCH} x {SHARD_SEQ} tokens "
+          f"on make_host_mesh() ({mesh_txt}, NCCL), parameters distributed "
+          f"by shardings.build_param_specs, ShardHints on; logits "
+          f"{placements} bit-identical to the plain-tensor prefill (gated); "
+          f"ops DTensor refused, run by ReshardFallbacks: "
+          f"{dict(fallbacks.fallbacks)}")
+    out["dtensor_prefill"] = {"mesh": mesh_txt, "placements": placements,
+                              "bit_identical": True,
+                              "fallbacks": dict(fallbacks.fallbacks)}
+    del params, dparams
+    torch.cuda.empty_cache()
+
+    # (b) the dry runs' records
+    out["dryruns"] = {}
+    for name, (proc, path) in procs.items():
+        try:
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log = path.with_suffix(".log").read_text()
+        check(proc.returncode == 0 and path.exists(),
+              f"phase 20: {name} exited {proc.returncode}: {log[-1500:]}")
+        rec = json.loads(path.read_text().splitlines()[-1])
+        check(rec["status"] == "OK", f"phase 20: {name}: {rec}")
+        out["dryruns"][name] = rec
+        if rec.get("mode") == "train":
+            want_bytes = spec_argument_bytes(
+                get_config(rec["arch"]), INPUT_SHAPES[rec["shape"]],
+                (16, 16))
+            got_bytes = rec["memory"]["argument_size_in_bytes"]
+            check(got_bytes == want_bytes, f"phase 20: {name}: argument "
+                  f"bytes {got_bytes}, the specs' shards {want_bytes}")
+        r = rec.get("roofline", {})
+        print(f"{name}: {rec['arch']} {rec.get('shape', rec.get('mode'))} "
+              f"[{rec['mesh']}] OK; "
+              + (f"compute_s {r['compute_s'] * 1e3:.3f} ms, memory_s "
+                 f"{r['memory_s'] * 1e3:.3f} ms, collective_s "
+                 f"{r['collective_s'] * 1e3:.3f} ms, dominant "
+                 f"{r['dominant']}, useful_flops_ratio "
+                 f"{r['useful_flops_ratio']:.4f}, memory {rec['memory']}, "
+                 f"fallbacks {rec.get('fallbacks')}" if r else
+                 f"{rec['clients']} clients, collectives "
+                 f"{rec['collectives']}, kernels {rec['kernels']}")
+              + f", {rec.get('trace_s', rec.get('t_s'))} s")
+    print(f"phase 20 launches {launches}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2488,7 +2833,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs import ctgan_paper
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, ops, work
     from repro_torch.kernels import ref as plain
     from repro_torch.launch.serve import make_tenant
     from repro_torch.serve import (StreamingSynthesizer, SynthesisRequest,
@@ -2818,8 +3163,6 @@ def main() -> int:
     def lib_bwd():   # the library's dq + dk/dv pair
         return torch.autograd.grad(lib_out, (lq, lk, lv), fdo,
                                    retain_graph=True)
-    pairs = BH * Sf * (Sf + 1) // 2          # visible (query, key) pairs
-    elems = BH * Sf * hd
     # the flash kernels at hubert-xlarge's shape: hd 80, bidirectional,
     # bf16
     B8, H8, hd8 = HUBERT_BATCH, 16, 80
@@ -2836,7 +3179,6 @@ def main() -> int:
 
     def lib8_bwd():  # the library's dq + dk/dv pair at hd 80
         return torch.autograd.grad(lib8_out, l8, f8do, retain_graph=True)
-    pairs8, elems8 = BH8 * Sf * Sf, BH8 * Sf * hd8
 
     def close_bf16(a, b):    # one bfloat16 ulp where f32 results straddle
         d = (a.float() - b.float()).abs()
@@ -2867,8 +3209,21 @@ def main() -> int:
     col_args = (cx, p0.means.float().contiguous(), p0.stds.float().contiguous(),
                 kernel_log_weights(p0).contiguous(), cg)
 
-    enc_bytes, enc_ops = encode_bytes_ops(Nq, Q, K)
-    col_bytes, col_ops = encode_bytes_ops(Nq, 1, K0)
+    # each case's least work: repro_torch.kernels.work, the formulas the
+    # roofline's count of a step uses too
+    enc_bytes, enc_ops = work.vgm_encode(Nq, Q, K)
+    col_bytes, col_ops = work.vgm_encode(Nq, 1, K0)
+    act_bytes, act_ops = work.segment_activations(B, S, W)
+    bwd_bytes, bwd_ops = work.segment_activations(Bt, St, Wt, backward=True)
+    dec_bytes, dec_ops = work.vgm_decode_table(B, Qd, K)
+    agg_bytes, agg_ops = work.weighted_agg(1, P, D)
+    bf16 = torch.bfloat16
+    causal = {"causal": True, "window": None, "kv_len": Sf}
+    bidir = {"causal": False, "window": None, "kv_len": Sf}
+    flash = {kind: work.flash_attention(kind, BH, Sf, hd, bf16, **causal)
+             for kind in ("fwd", "dq", "dkv")}
+    flash8 = {kind: work.flash_attention(kind, BH8, Sf, hd8, bf16, **bidir)
+              for kind in ("fwd", "dq", "dkv")}
 
     def cmp_exact(got, want):
         errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
@@ -2890,15 +3245,14 @@ def main() -> int:
                                                    True),
              plain=lambda: plain.segment_activations_ref(px, pu, kinds,
                                                          cfg.tau, True),
-             bytes=4 * (3 * B * S * W + S * W), ops=B * S * W * 12, tol=2e-6,
+             bytes=act_bytes, ops=act_ops, tol=2e-6,
              replaces="src/repro/kernels/segment_activations.py:134",
              launches=launches["segment_activations"],
              shape=f"({B}, {S} spans x Wmax {W}), hard"),
         dict(name="vgm_decode_table", stem="vgm_decode",
              kern=lambda: vgm_decode_table_cuda(*dec_args),
              plain=lambda: plain.vgm_decode_table_ref(*dec_args),
-             bytes=4 * (B * Qd * (1 + K) + 2 * Qd * K + B * Qd),
-             ops=B * Qd * (K + 4), tol=0.0,
+             bytes=dec_bytes, ops=dec_ops, tol=0.0,
              replaces="src/repro/kernels/vgm_decode.py:62",
              launches=launches["vgm_decode_table"],
              shape=f"slots ({B}, {Qd} x {1 + K})"),
@@ -2906,7 +3260,7 @@ def main() -> int:
              kern=lambda: weighted_agg_cuda(stack[None], w[None])[0],
              plain=lambda: plain.weighted_agg_ref(stack, w),
              library=lambda: (w / torch.sum(w)) @ stack,
-             bytes=4 * (P * D + P + D), ops=2 * P * D,
+             bytes=agg_bytes, ops=agg_ops,
              tol=1e-7 + 1e-6 * float(stack.abs().max()),
              replaces="src/repro/kernels/weighted_agg.py:47",
              launches=fed_launches["weighted_agg"],
@@ -2916,8 +3270,7 @@ def main() -> int:
                                                        cfg.tau),
              plain=lambda: plain.segment_activations_bwd_ref(
                  tpx, tpu, tkinds, tct, cfg.tau),
-             bytes=4 * (4 * Bt * St * Wt + St * Wt), ops=Bt * St * Wt * 16,
-             tol=3e-5,
+             bytes=bwd_bytes, ops=bwd_ops, tol=3e-5,
              replaces="src/repro/kernels/segment_activations.py:200",
              launches=fed_launches["segment_activations_bwd"],
              shape=f"({Bt}, {St} spans x Wmax {Wt}), ct in [-1, 1]"),
@@ -2935,8 +3288,8 @@ def main() -> int:
              plain=lambda: plain.flash_attention_fwd_ref(fq, fk, fv, **mask),
              library=lambda: F.scaled_dot_product_attention(fq, fk, fv,
                                                             is_causal=True),
-             compare=cmp_fwd, bytes=2 * 4 * elems + 4 * BH * Sf,
-             ops=2 * 2 * hd * pairs, peak=PEAK_BF16_OPS_PER_S,
+             compare=cmp_fwd, bytes=flash["fwd"][0], ops=flash["fwd"][1],
+             peak=PEAK_BF16_OPS_PER_S,
              replaces="src/repro/kernels/flash_attention.py:167",
              launches=lm_launches["flash_attention_fwd"],
              shape=f"({LM_BATCH}, 9, {Sf}, {hd}) bf16, causal"),
@@ -2945,8 +3298,8 @@ def main() -> int:
              kern=lambda: flash_dq_cuda(*bwd_args, **mask),
              plain=lambda: plain.flash_attention_dq_ref(*bwd_args, **mask),
              library=lib_bwd, compare=cmp_grads,
-             bytes=2 * 4 * elems + 8 * BH * Sf + 4 * elems,
-             ops=3 * 2 * hd * pairs, peak=PEAK_BF16_OPS_PER_S,
+             bytes=flash["dq"][0], ops=flash["dq"][1],
+             peak=PEAK_BF16_OPS_PER_S,
              replaces="src/repro/kernels/flash_attention.py:199",
              launches=lm_launches["flash_attention_dq"],
              shape=f"({LM_BATCH}, 9, {Sf}, {hd}) bf16, causal"),
@@ -2955,8 +3308,8 @@ def main() -> int:
              kern=lambda: flash_dkv_cuda(*bwd_args, **mask),
              plain=lambda: plain.flash_attention_dkv_ref(*bwd_args, **mask),
              library=lib_bwd, compare=cmp_grads,
-             bytes=2 * 4 * elems + 8 * BH * Sf + 8 * elems,
-             ops=4 * 2 * hd * pairs, peak=PEAK_BF16_OPS_PER_S,
+             bytes=flash["dkv"][0], ops=flash["dkv"][1],
+             peak=PEAK_BF16_OPS_PER_S,
              replaces="src/repro/kernels/flash_attention.py:216",
              launches=lm_launches["flash_attention_dkv"],
              shape=f"({LM_BATCH}, 9, {Sf}, {hd}) bf16, causal"),
@@ -2966,8 +3319,8 @@ def main() -> int:
              plain=lambda: plain.flash_attention_fwd_ref(f8q, f8k, f8v,
                                                          **mask8),
              library=lambda: F.scaled_dot_product_attention(f8q, f8k, f8v),
-             compare=cmp_fwd, bytes=2 * 4 * elems8 + 4 * BH8 * Sf,
-             ops=2 * 2 * hd8 * pairs8, peak=PEAK_BF16_OPS_PER_S,
+             compare=cmp_fwd, bytes=flash8["fwd"][0], ops=flash8["fwd"][1],
+             peak=PEAK_BF16_OPS_PER_S,
              replaces="src/repro/kernels/flash_attention.py:167",
              launches=None,
              shape=f"({B8}, {H8}, {Sf}, {hd8}) bf16, bidirectional"),
@@ -2976,8 +3329,8 @@ def main() -> int:
              kern=lambda: flash_dq_cuda(*bwd8, **mask8),
              plain=lambda: plain.flash_attention_dq_ref(*bwd8, **mask8),
              library=lib8_bwd, compare=cmp_grads,
-             bytes=2 * 4 * elems8 + 8 * BH8 * Sf + 4 * elems8,
-             ops=3 * 2 * hd8 * pairs8, peak=PEAK_BF16_OPS_PER_S,
+             bytes=flash8["dq"][0], ops=flash8["dq"][1],
+             peak=PEAK_BF16_OPS_PER_S,
              replaces="src/repro/kernels/flash_attention.py:199",
              launches=None,
              shape=f"({B8}, {H8}, {Sf}, {hd8}) bf16, bidirectional"),
@@ -2986,8 +3339,8 @@ def main() -> int:
              kern=lambda: flash_dkv_cuda(*bwd8, **mask8),
              plain=lambda: plain.flash_attention_dkv_ref(*bwd8, **mask8),
              library=lib8_bwd, compare=cmp_grads,
-             bytes=2 * 4 * elems8 + 8 * BH8 * Sf + 8 * elems8,
-             ops=4 * 2 * hd8 * pairs8, peak=PEAK_BF16_OPS_PER_S,
+             bytes=flash8["dkv"][0], ops=flash8["dkv"][1],
+             peak=PEAK_BF16_OPS_PER_S,
              replaces="src/repro/kernels/flash_attention.py:216",
              launches=None,
              shape=f"({B8}, {H8}, {Sf}, {hd8}) bf16, bidirectional"),
@@ -2998,7 +3351,7 @@ def main() -> int:
         plain=lambda: plain.weighted_agg_edges_ref(stack4, w4),
         library=lambda: torch.bmm((w4 / torch.sum(w4, 1, keepdim=True))[:, None],
                                   stack4)[:, 0],
-        bytes=4 * (4 * D + 4 + 2 * D), ops=2 * 4 * D,
+        bytes=work.weighted_agg(2, 2, D)[0], ops=work.weighted_agg(2, 2, D)[1],
         tol=1e-7 + 1e-6 * float(stack4.abs().max()),
         replaces="src/repro/kernels/ops.py:235", launches=None,
         shape=f"edges (2, 2, {D})")
@@ -3013,7 +3366,8 @@ def main() -> int:
         kern=lambda: weighted_agg_cuda(lm_stack[None], lm_w[None])[0],
         plain=lambda: plain.weighted_agg_ref(lm_stack, lm_w),
         library=lambda: (lm_w / torch.sum(lm_w)) @ lm_stack,
-        bytes=4 * (LM_CLIENTS * Dl + LM_CLIENTS + Dl), ops=2 * LM_CLIENTS * Dl,
+        bytes=work.weighted_agg(1, LM_CLIENTS, Dl)[0],
+        ops=work.weighted_agg(1, LM_CLIENTS, Dl)[1],
         tol=1e-7 + 1e-6 * float(lm_stack.abs().max()),
         replaces="src/repro/kernels/weighted_agg.py:47", launches=None,
         shape=f"flat ({LM_CLIENTS}, {Dl})")
@@ -3042,9 +3396,7 @@ def main() -> int:
                 + ", ".join(f"{e:.3g}" for e in errs) + "; of the gate: "
                 + ", ".join(f"{k} {v:.3f}" for k, v in mlstm_gate.items())
                 + ")")
-    nch = XS // XL
-    mlstm_ops = XB * (2 * XL * XD * XD * (2 * nch - 1)       # C update, q C
-                      + 2 * 2 * XD * nch * XL * (XL + 1) // 2)  # causal q k, S v
+    mlstm_bytes, mlstm_ops = work.mlstm_chunk(XB, XS, XD, XL)
     # bound: the bf16 products that the kernel does on the tensor cores
     # (MLSTM_PRODUCTS a float32 product, on the least work); the float32
     # bound of the least work beside it
@@ -3055,9 +3407,8 @@ def main() -> int:
         plain=lambda: plain.mlstm_chunk_plain(*m_args, chunk=XL,
                                               return_state=True),
         compare=cmp_mlstm, plain_reps=2,     # ~280 launches per plain call
-        bytes=4 * (4 * XB * XS * XD + 2 * XB * XS + XB * XD * XD + XB * XD
-                   + XB),
-        ops=MLSTM_PRODUCTS * mlstm_ops, peak=PEAK_BF16_OPS_PER_S,
+        bytes=mlstm_bytes, ops=MLSTM_PRODUCTS * mlstm_ops,
+        peak=PEAK_BF16_OPS_PER_S,
         replaces="src/repro/kernels/mlstm_chunk.py:79",
         launches=record["xlstm"]["launches"]["mlstm_chunk"],
         shape=f"({XB}, {XS}, {XD}), L {XL}, float32, with the final state"))
@@ -3189,6 +3540,12 @@ def main() -> int:
         k["launches_phase19"] = record["families"]["launches"].get(
             k["name"], 0)
     lap("model families")
+
+    # ---- 20. the launch tooling ----------------------------------------
+    record["launch"] = launch_phase(dev)
+    for k in kernels:
+        k["launches_phase20"] = record["launch"]["launches"].get(k["name"], 0)
+    lap("launch tooling")
     record["phase_s"] = phase_s
     print(f"phase seconds {phase_s}")
 
@@ -3207,9 +3564,14 @@ if __name__ == "__main__":
     ap.add_argument("--encode-shapes", action="store_true",
                     help="run only the card, the build and the encode's "
                     "shape line")
+    ap.add_argument("--host-paths", action="store_true",
+                    help="run only the LM round and the serving drains, "
+                    "timed")
     ap.add_argument("--tree", type=Path, default=ROOT,
-                    help="with --encode-shapes: the checkout whose "
-                    "repro_torch to time (default: this one)")
+                    help="with --encode-shapes or --host-paths: the "
+                    "checkout whose repro_torch to time (default: this one)")
     cli = ap.parse_args()
-    sys.exit(encode_shapes_main(cli.tree.resolve()) if cli.encode_shapes
+    if cli.encode_shapes:
+        sys.exit(encode_shapes_main(cli.tree.resolve()))
+    sys.exit(host_paths_main(cli.tree.resolve()) if cli.host_paths
              else main())

@@ -21,6 +21,13 @@ def param_bytes(params: Iterable[torch.Tensor]) -> float:
     return float(sum(p.numel() * p.element_size() for p in params))
 
 
+def pytree_bytes(tree) -> float:
+    """Bytes of every tensor of a nested dict/list/tuple."""
+    from ..models.model import tree_leaves
+    return param_bytes(t for t in tree_leaves(tree)
+                       if isinstance(t, torch.Tensor))
+
+
 def fl_bytes_per_round(n_clients: int, model_bytes: float) -> float:
     """FL: 2 * P * |theta| per round (up and back down)."""
     return 2.0 * n_clients * model_bytes

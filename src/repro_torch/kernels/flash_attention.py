@@ -17,7 +17,8 @@ float32, casts ``do`` to q's dtype, takes dq and dk/dv in float32 and
 casts each to its input's dtype.  Tensors on the CPU take the plain
 versions (each call counted as ``flash_attention_ref``); CUDA tensors
 launch the kernels (counted as ``flash_attention_fwd``,
-``flash_attention_dq`` and ``flash_attention_dkv``) or raise.
+``flash_attention_dq`` and ``flash_attention_dkv``) or raise; meta
+tensors, which have no values, take the plain versions too.
 :func:`repro_torch.kernels.ops.flash_attention` adds the GQA expansion
 and the padding around it.
 """
@@ -28,7 +29,8 @@ import math
 
 import torch
 
-from . import _build, ref
+from .. import counting
+from . import _build, ref, work
 from ._build import DISPATCH_COUNTS
 
 # head dims and element types the kernels are instantiated for, and the
@@ -142,21 +144,42 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool,
     return dk, dv
 
 
+def _plain(q) -> bool:
+    """The plain route: inputs on the CPU or without values (meta)."""
+    return q.device.type in ("cpu", "meta")
+
+
+def _work(kind: str, q, mask) -> tuple:
+    """The counter's record of one launch: (name, work, dtype), as
+    :func:`repro_torch.counting.kernel` takes it."""
+    def least():
+        B, H, Sq, hd = q.shape
+        return work.flash_attention(kind, B * H, Sq, hd, q.dtype, **mask)
+    return f"flash_attention_{kind}", least, q.dtype
+
+
 def _forward(q, k, v, mask):
-    if q.device.type == "cpu":
-        DISPATCH_COUNTS["flash_attention_ref"] += 1
-        return ref.flash_attention_fwd_ref(q, k, v, **mask)
-    return flash_fwd_cuda(q, k, v, **mask)
+    with counting.kernel(*_work("fwd", q, mask)):
+        if _plain(q):
+            DISPATCH_COUNTS["flash_attention_ref"] += 1
+            return ref.flash_attention_fwd_ref(q, k, v, **mask)
+        return flash_fwd_cuda(q, k, v, **mask)
 
 
 def _backward(q, k, v, do, lse, delta, mask):
-    if q.device.type == "cpu":
-        DISPATCH_COUNTS["flash_attention_ref"] += 2
-        dq = ref.flash_attention_dq_ref(q, k, v, do, lse, delta, **mask)
-        dk, dv = ref.flash_attention_dkv_ref(q, k, v, do, lse, delta, **mask)
-        return dq, dk, dv
-    dq = flash_dq_cuda(q, k, v, do, lse, delta, **mask)
-    dk, dv = flash_dkv_cuda(q, k, v, do, lse, delta, **mask)
+    args = (q, k, v, do, lse, delta)
+    with counting.kernel(*_work("dq", q, mask)):
+        if _plain(q):
+            DISPATCH_COUNTS["flash_attention_ref"] += 1
+            dq = ref.flash_attention_dq_ref(*args, **mask)
+        else:
+            dq = flash_dq_cuda(*args, **mask)
+    with counting.kernel(*_work("dkv", q, mask)):
+        if _plain(q):
+            DISPATCH_COUNTS["flash_attention_ref"] += 1
+            dk, dv = ref.flash_attention_dkv_ref(*args, **mask)
+        else:
+            dk, dv = flash_dkv_cuda(*args, **mask)
     return dq, dk, dv
 
 

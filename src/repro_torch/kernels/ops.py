@@ -1,9 +1,14 @@
 """The router between each CUDA kernel and its plain PyTorch version.
 
-A tensor on the CPU goes to the plain version (counted as ``<name>_ref``);
-any other tensor goes to the CUDA kernel, which launches (counted as
-``<name>`` in ``_build.launch``) or raises.  There is no fallback from a
-failed build or launch to the plain version.
+A tensor on the CPU goes to the plain version (counted as ``<name>_ref``),
+and so does one on the meta device, which has shapes and no values (the
+launch tooling's dry runs); any other tensor goes to the CUDA kernel,
+which launches (counted as ``<name>`` in ``_build.launch``) or raises.
+There is no fallback from a failed build or launch to the plain version.
+
+Under a :class:`repro_torch.counting.OpCounter` each entry reports one
+launch of its kernel with the least work of :mod:`repro_torch.kernels.
+work` and hides the ops beneath it, on either route.
 
 ``DISPATCH_COUNTS`` keeps the JAX package's key names, so the port states
 the same contracts: one ``vgm_decode_table`` dispatch per request, one
@@ -25,7 +30,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from . import ref
+from .. import counting
+from . import ref, work
 from ._build import DISPATCH_COUNTS
 from .flash_attention import FlashAttention
 from .mlstm_chunk import mlstm_chunk_cuda
@@ -69,37 +75,45 @@ def stage_dispatches(counts, stage: str) -> int:
                if k == stage or k == stage + "_ref")
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    return t.device.type == "cpu"
+def _plain_route(t: torch.Tensor) -> bool:
+    """The plain route: a tensor on the CPU or without values (meta)."""
+    return t.device.type in ("cpu", "meta")
 
 
 def vgm_encode(x, means, stds, log_weights, gumbel):
     """Encode one continuous column: x (N,), its (K,) mode params and
     (N, K) Gumbel noise -> (alpha (N,), beta (N, K)); see
     :mod:`repro_torch.kernels.vgm_encode`."""
-    if _on_cpu(x):
-        DISPATCH_COUNTS["vgm_encode_ref"] += 1
-        return ref.vgm_encode_ref(x, means, stds, log_weights, gumbel)
-    return vgm_encode_cuda(x, means, stds, log_weights, gumbel)
+    with counting.kernel("vgm_encode", lambda: work.vgm_encode(
+            x.shape[0], 1, gumbel.shape[1]), torch.float32):
+        if _plain_route(x):
+            DISPATCH_COUNTS["vgm_encode_ref"] += 1
+            return ref.vgm_encode_ref(x, means, stds, log_weights, gumbel)
+        return vgm_encode_cuda(x, means, stds, log_weights, gumbel)
 
 
 def vgm_encode_table(x_cols, means, stds, log_weights, gumbel):
     """Encode all continuous columns in one dispatch; see
     :mod:`repro_torch.kernels.vgm_encode`."""
-    if _on_cpu(x_cols):
-        DISPATCH_COUNTS["vgm_encode_table_ref"] += 1
-        return ref.vgm_encode_table_ref(x_cols, means, stds, log_weights,
-                                        gumbel)
-    return vgm_encode_table_cuda(x_cols, means, stds, log_weights, gumbel)
+    with counting.kernel("vgm_encode_table", lambda: work.vgm_encode(
+            *x_cols.shape, means.shape[1]), torch.float32):
+        if _plain_route(x_cols):
+            DISPATCH_COUNTS["vgm_encode_table_ref"] += 1
+            return ref.vgm_encode_table_ref(x_cols, means, stds,
+                                            log_weights, gumbel)
+        return vgm_encode_table_cuda(x_cols, means, stds, log_weights,
+                                     gumbel)
 
 
 def vgm_decode_table(slots, means, stds):
     """Decode all continuous columns in one dispatch; see
     :mod:`repro_torch.kernels.vgm_decode`."""
-    if _on_cpu(slots):
-        DISPATCH_COUNTS["vgm_decode_table_ref"] += 1
-        return ref.vgm_decode_table_ref(slots, means, stds)
-    return vgm_decode_table_cuda(slots, means, stds)
+    with counting.kernel("vgm_decode_table", lambda: work.vgm_decode_table(
+            slots.shape[0], *means.shape), torch.float32):
+        if _plain_route(slots):
+            DISPATCH_COUNTS["vgm_decode_table_ref"] += 1
+            return ref.vgm_decode_table_ref(slots, means, stds)
+        return vgm_decode_table_cuda(slots, means, stds)
 
 
 def pack_segments(logits: torch.Tensor, spans: Sequence, uniforms: torch.Tensor):
@@ -133,16 +147,20 @@ def segment_activations(logits: torch.Tensor, spans: Sequence,
     needs no gradient launches the forward kernel alone."""
     layout, packed_x, packed_u = pack_segments(logits, spans, uniforms)
     t = layout_tensors(layout, logits.device)
-    if _on_cpu(logits):
+    args = (packed_x, packed_u, t.kinds, float(tau), bool(hard))
+    fwd = ("segment_activations", lambda: work.segment_activations(
+        packed_x.shape[0], *layout.kinds.shape), torch.float32)
+    if _plain_route(logits):
         DISPATCH_COUNTS["segment_activations_ref"] += 1
-        out = ref.segment_activations_ref(packed_x, packed_u, t.kinds,
-                                          float(tau), bool(hard))
-    elif packed_x.requires_grad:
-        out = SegmentActivations.apply(packed_x, packed_u, t.kinds,
-                                       float(tau), bool(hard))
+        out = counting.plain_with_backward(
+            ref.segment_activations_ref, args, fwd,
+            ("segment_activations_bwd", lambda: work.segment_activations(
+                packed_x.shape[0], *layout.kinds.shape, backward=True),
+             torch.float32))
     else:
-        out = segment_activations_cuda(packed_x, packed_u, t.kinds,
-                                       float(tau), bool(hard))
+        with counting.kernel(*fwd):
+            out = (SegmentActivations.apply(*args) if packed_x.requires_grad
+                   else segment_activations_cuda(*args))
     return out.index_select(1, t.unpack_src)
 
 
@@ -151,10 +169,12 @@ def weighted_average_flat(stacked: torch.Tensor,
     """The federator merge: stacked (P, D) client vectors and (P,) weights
     (normalized inside) -> (D,), in one dispatch counted as
     ``weighted_agg`` (``weighted_agg_ref`` on the CPU)."""
-    if _on_cpu(stacked):
-        DISPATCH_COUNTS["weighted_agg_ref"] += 1
-        return ref.weighted_agg_ref(stacked, weights)
-    return weighted_agg_cuda(stacked[None], weights[None])[0]
+    with counting.kernel("weighted_agg", lambda: work.weighted_agg(
+            1, *stacked.shape), torch.float32):
+        if _plain_route(stacked):
+            DISPATCH_COUNTS["weighted_agg_ref"] += 1
+            return ref.weighted_agg_ref(stacked, weights)
+        return weighted_agg_cuda(stacked[None], weights[None])[0]
 
 
 def weighted_average_edges(stacked: torch.Tensor,
@@ -163,10 +183,12 @@ def weighted_average_edges(stacked: torch.Tensor,
     stacks and (E, C) weights -> (E, D), every edge in ONE dispatch, counted
     once as ``weighted_agg`` (``weighted_agg_ref`` on the CPU).  An edge
     whose weights are all 0 merges to zeros."""
-    if _on_cpu(stacked):
-        DISPATCH_COUNTS["weighted_agg_ref"] += 1
-        return ref.weighted_agg_edges_ref(stacked, weights)
-    return weighted_agg_cuda(stacked, weights)
+    with counting.kernel("weighted_agg", lambda: work.weighted_agg(
+            *stacked.shape), torch.float32):
+        if _plain_route(stacked):
+            DISPATCH_COUNTS["weighted_agg_ref"] += 1
+            return ref.weighted_agg_edges_ref(stacked, weights)
+        return weighted_agg_cuda(stacked, weights)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -217,13 +239,18 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reference's Pallas kernel has none: on the card, inputs that require
     grad under autograd raise ``NotImplementedError``."""
     args = (q, k, v, log_f, log_i)
-    if _on_cpu(q):
-        DISPATCH_COUNTS["mlstm_chunk_ref"] += 1
-        return ref.mlstm_chunk_plain(*args, chunk=chunk,
-                                     return_state=return_state)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+    if not _plain_route(q) and torch.is_grad_enabled() and any(
+            t.requires_grad for t in args):
         raise NotImplementedError(
             "mlstm_chunk: the CUDA kernel has no backward; see ROADMAP queue "
             "1, \"xLSTM training on the card\". Run the forward under "
             "torch.no_grad()")
-    return mlstm_chunk_cuda(*args, chunk=chunk, return_state=return_state)
+    # no backward kernel: under autograd the plain version's backward ops
+    # are counted as they run
+    with counting.kernel("mlstm_chunk", lambda: work.mlstm_chunk(
+            *q.shape, chunk), torch.float32):
+        if _plain_route(q):
+            DISPATCH_COUNTS["mlstm_chunk_ref"] += 1
+            return ref.mlstm_chunk_plain(*args, chunk=chunk,
+                                         return_state=return_state)
+        return mlstm_chunk_cuda(*args, chunk=chunk, return_state=return_state)

@@ -18,7 +18,8 @@ import functools
 import numpy as np
 import torch
 
-from . import _build
+from .. import counting
+from . import _build, work
 from .ref import (segment_activations_bwd_ref,  # noqa: F401 (plain versions)
                   segment_activations_ref)
 
@@ -188,6 +189,10 @@ class SegmentActivations(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         x, u, kinds = ctx.saved_tensors
-        grad = segment_activations_bwd_cuda(x, u, kinds, ct.contiguous(),
-                                            ctx.tau)
+        with counting.kernel("segment_activations_bwd",
+                             lambda: work.segment_activations(
+                                 x.shape[0], *kinds.shape, backward=True),
+                             torch.float32):
+            grad = segment_activations_bwd_cuda(x, u, kinds, ct.contiguous(),
+                                                ctx.tau)
         return grad, None, None, None, None

@@ -133,14 +133,20 @@ def _rope_qk(q, k, positions, cfg: ModelConfig):
 
 
 def attention_block(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
-                    positions: torch.Tensor,
-                    q_chunk: int = 1024) -> torch.Tensor:
+                    positions: torch.Tensor, q_chunk: int = 1024,
+                    shard=None) -> torch.Tensor:
     """Full-sequence self-attention (training).  With
     ``cfg.use_flash_kernel`` the attention itself is
     :func:`repro_torch.kernels.ops.flash_attention` (the CUDA kernels on
     the card, their plain versions on the CPU), else
-    :func:`gqa_attention`."""
+    :func:`gqa_attention`.  ``shard`` (:class:`repro_torch.models.
+    ShardHints`): K and V are gathered to full sequences once per layer."""
     q, k, v = _project_qkv(p, x, x, cfg)
+    if shard is not None and x.shape[1] > 1:
+        # K/V full-sequence inside each q-chunk: one gather per layer
+        # instead of partial sums over a model-sharded S in every chunk
+        k = shard.constrain(k, (shard.dp, None, None, None))
+        v = shard.constrain(v, (shard.dp, None, None, None))
     q, k = _rope_qk(q, k, positions, cfg)
     pos1d = positions if positions.dim() == 1 else positions[0]
     if cfg.use_flash_kernel:

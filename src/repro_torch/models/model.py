@@ -21,32 +21,44 @@ from ``vision`` at every step).  With ``cfg.remat`` each repetition runs
 under ``torch.utils.checkpoint`` (non-reentrant), the reference's
 ``jax.checkpoint`` of the scanned body: the backward recomputes the
 forward, so a flash-attention forward launches twice per layer and
-training step.  The reference's ``ShardHints`` are TPU-mesh tooling and
-are not ported.
+training step.  With :class:`ShardHints` over DTensor parameters, the
+residual stream, attention's K and V, the MoE dispatch and the logits are
+redistributed to the reference's sharding constraints; on plain tensors
+the hints change nothing.  ``init(device="meta")`` gives the parameters'
+shapes and dtypes without values, for the launch tooling's dry runs.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterator, NamedTuple
 
 import torch
+import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device, seeded_generator
 from . import attention as attn
 from . import ssm
 from .config import ModelConfig
-from .layers import dense_init, rms_norm
+from .layers import PartitionSpec, dense_init, rms_norm, spec_placements
 from .moe import dense_ffn, init_dense_ffn, init_moe, moe_ffn
 
 
+def _is_node(tree) -> bool:
+    return (isinstance(tree, (list, tuple))
+            and not isinstance(tree, PartitionSpec))
+
+
 def tree_items(tree, prefix: str = "") -> Iterator[tuple[str, torch.Tensor]]:
-    """``(path, leaf)`` pairs of a nested dict/list of tensors, dict keys
-    in sorted order (as ``jax.tree`` flattens a dict), paths joined by
-    ``/`` (``layers/0/pos0/attn/wq``)."""
+    """``(path, leaf)`` pairs of a nested dict/list/tuple of tensors (a
+    :class:`PartitionSpec` is a leaf), dict keys in sorted order (as
+    ``jax.tree`` flattens a dict), paths joined by ``/``
+    (``layers/0/pos0/attn/wq``)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_items(tree[k], f"{prefix}{k}/")
-    elif isinstance(tree, (list, tuple)):
+    elif _is_node(tree):
         for i, t in enumerate(tree):
             yield from tree_items(t, f"{prefix}{i}/")
     else:
@@ -65,18 +77,61 @@ def tree_unflatten(like, leaves):
     def build(t):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
+        if isinstance(t, list):
             return [build(x) for x in t]
+        if _is_node(t):                 # a tuple or a NamedTuple
+            items = [build(x) for x in t]
+            return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
         return next(it)
     return build(like)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardHints:
+    """Activation sharding constraints: ``dp`` the batch axes, ``tp`` the
+    tensor axis, ``residual`` the carry's sharding between blocks,
+    ``"dmodel"`` (batch x d_model) or ``"seq"`` (Megatron sequence
+    sharding, kept for A/B runs)."""
+    dp: tuple[str, ...] = ("data",)
+    tp: str | None = "model"
+    residual: str = "dmodel"
+
+    def constrain(self, x, spec):
+        """A DTensor redistributed to ``spec``'s placements on its mesh;
+        any other tensor unchanged (as the reference's constraint is a
+        no-op off a mesh)."""
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor):
+            return x
+        return x.redistribute(x.device_mesh,
+                              spec_placements(spec, x.device_mesh))
+
+
+# factories that take a device: on the meta device they drop their
+# generator (torch has no meta generator)
+_FACTORIES = (torch.randn, torch.rand, torch.zeros, torch.ones, torch.full,
+              torch.empty, torch.arange)
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every factory call made on the meta device: shapes and dtypes,
+    no values, no allocation."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func in _FACTORIES:
+            kwargs.pop("generator", None)
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
 
 
 class Transformer:
     """The language model of every block kind and input kind of the
     reference."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, shard: ShardHints | None = None):
         self.cfg = cfg
+        self.shard = shard
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
     def init(self, *, seed: int = 0,
@@ -84,8 +139,12 @@ class Transformer:
         """Random parameters drawn on ``device`` from ``seed``, every leaf
         a tensor that requires grad.  The draws are not the reference's:
         carry its parameters across with
-        :func:`repro_torch.interop.lm_params_from_reference`.  An unknown
-        block kind raises ``ValueError``."""
+        :func:`repro_torch.interop.lm_params_from_reference`.  On
+        ``device="meta"`` the leaves have shapes and dtypes and no values.
+        An unknown block kind raises ``ValueError``."""
+        if torch.device(device).type == "meta":
+            with _OnMeta():
+                return self.init(seed=seed, device="cpu")
         cfg, dtype = self.cfg, self.dtype
         dev = resolve_device(device)
         g = seeded_generator(dev, seed)
@@ -134,7 +193,7 @@ class Transformer:
     # ------------------------------------------------------------------
     # full sequence
     # ------------------------------------------------------------------
-    def _ffn(self, blk: dict, x: torch.Tensor
+    def _ffn(self, blk: dict, x: torch.Tensor, shard_moe: bool = True
              ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The block's FFN on the residual x, and the MoE's aux loss (None
         for a dense FFN or none)."""
@@ -142,7 +201,8 @@ class Transformer:
             return x, None
         h = rms_norm(x, blk["ffn_norm"], self.cfg.norm_eps)
         if "moe" in blk:
-            y, metrics = moe_ffn(blk["moe"], h, self.cfg)
+            y, metrics = moe_ffn(blk["moe"], h, self.cfg,
+                                 shard=self.shard if shard_moe else None)
             return x + y, metrics.aux_loss
         return x + dense_ffn(blk["ffn"], h), None
 
@@ -163,7 +223,8 @@ class Transformer:
             h = rms_norm(x, blk["pre_norm"], cfg.norm_eps)
             if kind == "attn":
                 y = attn.attention_block(blk["attn"], h, cfg=cfg,
-                                         positions=positions)
+                                         positions=positions,
+                                         shard=self.shard)
             elif kind == "xattn":
                 y = self._cross(blk, h, vision)
             elif kind == "mamba":
@@ -175,11 +236,31 @@ class Transformer:
             x, a = self._ffn(blk, x + y)
             if a is not None:
                 aux = aux + a
+            x = self._constrain_residual(x)
         return x, aux
+
+    def _constrain_residual(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual stream between blocks under ``shard``: batch x
+        d_model (or x sequence), batch only at one position (decode)."""
+        sh = self.shard
+        if sh is None:
+            return x
+        if x.shape[1] > 1:
+            spec = ((sh.dp, None, sh.tp) if sh.residual == "dmodel"
+                    else (sh.dp, sh.tp, None))
+            return sh.constrain(x, spec)
+        return sh.constrain(x, (sh.dp, None, None))
 
     def _embed(self, params: dict, batch: dict) -> torch.Tensor:
         if self.cfg.embed_inputs:
-            return params["embed"][batch["tokens"]]
+            table, sh = params["embed"], self.shard
+            if sh is not None:
+                # gathered before the lookup: DTensor's lookup in a
+                # vocab-sharded table leaves partial rows whose gradient
+                # it cannot route back, and torch 2.11 has no strategy for
+                # an index's backward (index_put)
+                table = sh.constrain(table, (None, None))
+            return F.embedding(batch["tokens"], table)
         return batch["features"].to(self.dtype) @ params["in_proj"]
 
     def _vision(self, batch: dict) -> torch.Tensor | None:
@@ -190,7 +271,13 @@ class Transformer:
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         w = (params["embed"].t() if self.cfg.tie_embeddings
              else params["lm_head"])
-        return x @ w
+        logits = x @ w
+        sh = self.shard
+        if sh is not None:
+            spec = ((sh.dp, None, sh.tp) if logits.dim() == 3
+                    else (sh.dp, sh.tp))
+            logits = sh.constrain(logits, spec)
+        return logits
 
     def forward(self, params: dict, batch: dict
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -221,7 +308,14 @@ class Transformer:
         lf = logits.float()
         logz = torch.logsumexp(lf, dim=-1)
         labels = batch["labels"].long()
-        label_logit = torch.gather(lf, -1, labels[..., None])[..., 0]
+        label_logit = torch.gather(lf, -1, labels[..., None])
+        if self.shard is not None:
+            # over vocab-sharded logits each rank gathers the labels it
+            # holds: the partial values are summed over the model axis
+            # (the reference's one-hot product sums them the same way)
+            label_logit = self.shard.constrain(label_logit,
+                                               (self.shard.dp, None, None))
+        label_logit = label_logit[..., 0]
         nll = logz - label_logit
         mask = batch.get("loss_mask")
         if mask is None:
@@ -317,7 +411,8 @@ class Transformer:
                     y, cache = ssm.mlstm_decode(blk["mlstm"], h, cache, cfg)
                 else:
                     y, cache = ssm.slstm_decode(blk["slstm"], h, cache, cfg)
-                x, _ = self._ffn(blk, x + y)
+                # the reference's decode gives its MoE no hints
+                x, _ = self._ffn(blk, x + y, shard_moe=False)
                 new[f"pos{pos}"] = cache
             new_caches.append(new)
         return self._head(params, x[:, -1, :]), new_caches

@@ -10,8 +10,10 @@ semantics).  Dropped rows are zeroed before the scatter, so every buffer
 slot receives at most one nonzero row and the scatter's sum does not
 depend on the order of its additions: the CUDA ``scatter_add_`` is
 deterministic here.  The three expert products stay ``torch.einsum``, as
-the reference leaves them to XLA.  The reference's ``shard`` hints are
-TPU-mesh tooling and are not ported.
+the reference leaves them to XLA.  Under ``shard`` hints (a
+:class:`repro_torch.models.ShardHints` over a DTensor mesh) the tokens are
+gathered before the dispatch and the expert weights used column-parallel
+(gate, up) and row-parallel (down), as the reference constrains them.
 """
 from __future__ import annotations
 
@@ -120,7 +122,7 @@ def moe_route(p: dict, x: torch.Tensor, cfg: ModelConfig) -> MoERouting:
     return MoERouting(gate, expert_idx, keep, dest, cap, aux)
 
 
-def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig
+def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, shard=None
             ) -> tuple[torch.Tensor, MoEMetrics]:
     """x (B, S, D) -> (B, S, D) and :class:`MoEMetrics`.  Group-local
     dispatch: routing, capacity and the scatter are per batch row.  Each
@@ -129,6 +131,10 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig
     each token sums its choices' outputs times their gates."""
     B, S, D = x.shape
     K = cfg.top_k
+    if shard is not None and S > 1:
+        # tokens gathered over the model axis before the dispatch: one
+        # all-gather of (B, S, D) beats reducing the scatter's output
+        x = shard.constrain(x, (shard.dp, None, None))
     r = moe_route(p, x, cfg)
     E, cap = cfg.n_experts, r.cap
     src = torch.repeat_interleave(x, K, dim=1)                  # (B, SK, D)
@@ -140,9 +146,17 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig
     h = buf.reshape(B, E, cap, D)
 
     w = p["experts"]
-    act = F.silu(torch.einsum("becd,edf->becf", h, w["w_gate"]))
-    act = act * torch.einsum("becd,edf->becf", h, w["w_up"])
-    out_buf = torch.einsum("becf,efd->becd", act, w["w_down"]).reshape(
+    wg, wu, wd = w["w_gate"], w["w_up"], w["w_down"]
+    if shard is not None:
+        # column-parallel gate/up, row-parallel down: contraction dims
+        # unsharded, the data-axis storage shards gathered per layer
+        h = shard.constrain(h, (shard.dp, None, None, None))
+        wg = shard.constrain(wg, (None, None, shard.tp))
+        wu = shard.constrain(wu, (None, None, shard.tp))
+        wd = shard.constrain(wd, (None, shard.tp, None))
+    act = F.silu(torch.einsum("becd,edf->becf", h, wg))
+    act = act * torch.einsum("becd,edf->becf", h, wu)
+    out_buf = torch.einsum("becf,efd->becd", act, wd).reshape(
         B, E * cap, D)
 
     gathered = torch.gather(out_buf, 1, index)

@@ -4,7 +4,9 @@
 * Mamba: a depthwise causal convolution, then the selective scan, a
   diagonal linear recurrence over a (B, d_inner, state) float32 state,
   run as a Python loop over time (the reference's ``lax.scan``; it has no
-  Pallas kernel, and a fused scan kernel would be new work, ROADMAP).
+  Pallas kernel, and a fused scan kernel would be new work, ROADMAP)
+  through :func:`repro_torch.counting.time_scan`, which a work count on
+  the meta device folds to one trip.
   ``mamba_decode`` advances the state by one token through a bfloat16
   window of the last ``ssm_conv`` inputs, as the reference's does.
 * mLSTM, the matrix-memory cell: ``mlstm_block`` runs it chunkwise
@@ -18,7 +20,7 @@
 * sLSTM, the scalar-memory cell with head-local recurrent mixing: its
   stabilized exponential gating is a nonlinear recurrence, a Python loop
   over time here (the reference's ``lax.scan``; its ``unroll=8`` changes
-  no value).
+  no value), through ``time_scan`` as Mamba's.
 
 States are NamedTuples of float32 tensors, as the reference's, but for
 ``MambaState.conv_buf``, bfloat16 in any model dtype.
@@ -31,6 +33,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import counting
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import dense_init
@@ -109,12 +112,15 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     dtu = dt * uf
     h = torch.zeros((B, uf.shape[-1], st), dtype=torch.float32,
                     device=x.device)
-    ys = []
-    for t in range(S):
-        decay = torch.exp(dt[:, t, :, None] * A)               # (B, di, st)
-        h = decay * h + dtu[:, t, :, None] * Bm[:, t, None, :]
-        ys.append(torch.sum(h * Cm[:, t, None, :], dim=-1))
-    y = torch.stack(ys, dim=1) + uf * p["ssm_d"]
+
+    def step(carry, xs_t, consts):
+        (h,), (dt_t, dtu_t, b_t, c_t), (A,) = carry, xs_t, consts
+        decay = torch.exp(dt_t[:, :, None] * A)                # (B, di, st)
+        h = decay * h + dtu_t[:, :, None] * b_t[:, None, :]
+        return (h,), torch.sum(h * c_t[:, None, :], dim=-1)
+
+    (h,), ys = counting.time_scan(step, (h,), (dt, dtu, Bm, Cm), (A,))
+    y = ys + uf * p["ssm_d"]
     out = (y.to(x.dtype) * F.silu(z)) @ p["ssm_out"]
     if not return_state:
         return out
@@ -321,11 +327,12 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     hd = D // H
     wx = (x @ p["slstm_wx"]).float()                          # (B, S, 4D)
     st = init_slstm_state(cfg, B, device=x.device)
-    hs = []
-    for t in range(S):
-        st, h = _slstm_step(st, wx[:, t], p["slstm_r"], H, hd)
-        hs.append(h)
-    out = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+
+    def step(st, xs_t, consts):
+        return _slstm_step(st, xs_t[0], consts[0], H, hd)
+
+    st, hs = counting.time_scan(step, st, (wx,), (p["slstm_r"],))
+    out = hs.reshape(B, S, D).to(x.dtype)
     if return_state:
         return out, st
     return out

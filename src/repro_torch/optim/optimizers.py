@@ -1,6 +1,7 @@
 """A plain functional Adam over parameter lists, the port's copy of the JAX
 package's ``optim/optimizers.py``: ``adam`` with its schedules
-(``constant_schedule``, ``cosine_schedule``) and ``clip_by_global_norm``.
+(``constant_schedule``, ``cosine_schedule``) and ``clip_by_global_norm``,
+and ``sgd`` with optional momentum.
 
 ``torch.optim.Adam`` is not used: it rounds ``sqrt(v) / sqrt(1 - b2^t)``
 in another order than the reference's ``sqrt(v / (1 - b2^t))`` and keeps
@@ -113,5 +114,41 @@ def adam(lr: float | Schedule = 2e-4, b1: float = 0.5, b2: float = 0.9,
             mus.append(mf.to(m.dtype))
             nus.append(vf.to(v.dtype))
         return AdamState(mus, nus, count)
+
+    return Optimizer(init, update)
+
+
+class SGDState(NamedTuple):
+    """The momentum buffers (None without momentum), one tensor per
+    parameter, and the number of updates made."""
+    buf: list[torch.Tensor] | None
+    count: int
+
+
+def sgd(lr: float | Schedule = 1e-2, momentum: float = 0.0) -> Optimizer:
+    """SGD, with heavy-ball momentum when ``momentum`` is not 0: ``buf =
+    momentum * buf + g`` in the buffer's (the parameter's) dtype, then ``p
+    - lr * buf`` in float32, rounded to the parameter's dtype.  ``update``
+    writes into ``params`` in place, as :func:`adam`'s does."""
+
+    def init(params: Sequence[torch.Tensor]) -> SGDState:
+        if momentum:
+            return SGDState([torch.zeros_like(p, requires_grad=False)
+                             for p in params], 0)
+        return SGDState(None, 0)
+
+    @torch.no_grad()
+    def update(grads: Sequence[torch.Tensor], state: SGDState,
+               params: Sequence[torch.Tensor]) -> SGDState:
+        count = state.count + 1
+        dev = params[0].device if params else "cpu"
+        c = torch.full((), float(count), dtype=torch.float32, device=dev)
+        lr_t = lr(c) if callable(lr) else lr
+        buf = state.buf
+        if momentum:
+            buf = [momentum * b + g.to(b.dtype) for b, g in zip(buf, grads)]
+        for p, g in zip(params, buf if momentum else grads):
+            p.copy_(p.float() - lr_t * g.float())
+        return SGDState(buf, count)
 
     return Optimizer(init, update)

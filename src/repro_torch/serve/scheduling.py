@@ -1,7 +1,8 @@
 """Continuous-batching admission: per-tenant deficit round robin.
 
-Pure Python: the port's own copy of the part of the JAX package's
-``serve/scheduling.py`` that the server uses.
+Pure Python: the port's own copy of the JAX package's
+``serve/scheduling.py``, with ``jain_index``, the fairness measure of the
+load benchmark, and the pass counts its starvation bound is held to.
 
 The FIFO drain treats the queue as one line: a tenant that floods the
 server parks every other tenant behind its burst.  Continuous batching
@@ -22,17 +23,36 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Any, Callable
+import math
+from typing import Any, Callable, Sequence
+
+
+def jain_index(values: Sequence[float]) -> float:
+    """Jain's fairness index ``(sum x)^2 / (n * sum x^2)`` over the
+    non-negative allocations ``values``: 1.0 = perfectly even, ``1/n`` =
+    one tenant got everything.  An empty or all-zero allocation is
+    vacuously fair (1.0)."""
+    xs = [float(v) for v in values]
+    if any(x < 0 for x in xs):
+        raise ValueError(f"allocations must be non-negative, got {xs}")
+    total = sum(xs)
+    if not xs or total == 0.0:
+        return 1.0
+    return total * total / (len(xs) * sum(x * x for x in xs))
 
 
 @dataclasses.dataclass
 class AdmittedRequest:
     """One scheduled unit: an opaque payload plus the accounting the
-    scheduler needs (tenant, bucket cost in rows, optional deadline)."""
+    scheduler needs (tenant, bucket cost in rows, optional deadline) and
+    the assembly passes it was pushed and admitted at, which the
+    starvation bound is held against."""
     tenant: str
     item: Any
     cost: int
     deadline_at: float | None = None
+    pushed_cycle: int = -1             # assembly passes done at the push
+    admitted_cycle: int = -1           # the pass that admitted it
 
 
 class ContinuousScheduler:
@@ -51,22 +71,34 @@ class ContinuousScheduler:
         self._queues: dict[str, collections.deque[AdmittedRequest]] = {}
         self._deficit: dict[str, float] = {}
         self._ring: collections.deque[str] = collections.deque()
+        self.cycles = 0                # completed assembly passes
 
     def __len__(self) -> int:
         return sum(len(q) for q in self._queues.values())
+
+    def backlogged(self) -> list[str]:
+        """Tenants with at least one queued request, in ring order."""
+        return [t for t in self._ring if self._queues[t]]
 
     def push(self, tenant: str, item: Any, cost: int, *,
              deadline_at: float | None = None) -> AdmittedRequest:
         """Enqueue ``item`` for ``tenant`` at ``cost`` rows of service."""
         if cost <= 0:
             raise ValueError(f"cost must be positive rows, got {cost}")
-        adm = AdmittedRequest(tenant, item, int(cost), deadline_at)
+        adm = AdmittedRequest(tenant, item, int(cost), deadline_at,
+                              pushed_cycle=self.cycles)
         if tenant not in self._queues:
             self._queues[tenant] = collections.deque()
             self._deficit[tenant] = 0.0
             self._ring.append(tenant)
         self._queues[tenant].append(adm)
         return adm
+
+    def starvation_bound(self, cost_ahead: int, max_cost: int) -> int:
+        """Most assembly passes before a request with ``cost_ahead`` rows
+        queued ahead of it (itself included) in its tenant's queue is
+        admitted, when the tenant's largest request costs ``max_cost``."""
+        return math.ceil((cost_ahead + max_cost) / self.quantum) + 1
 
     def assemble(self, *, now: float | None = None,
                  on_expired: Callable[[AdmittedRequest], None] | None = None
@@ -94,6 +126,7 @@ class ContinuousScheduler:
                 if self._deficit[tenant] < head.cost:
                     break
                 self._deficit[tenant] -= head.cost
+                head.admitted_cycle = self.cycles
                 cycle.append(queue.popleft())
             if not queue:
                 self._deficit[tenant] = 0.0
@@ -101,4 +134,5 @@ class ContinuousScheduler:
             self._ring.remove(tenant)
             del self._queues[tenant], self._deficit[tenant]
         self._ring.rotate(-1)
+        self.cycles += 1
         return cycle
