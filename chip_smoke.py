@@ -1,5 +1,5 @@
 """Drive the PyTorch port's serving, federated CTGAN training, federated
-LM pre-training and xLSTM LM serving paths, the paper's baseline
+LM pre-training, xLSTM LM serving and xLSTM training paths, the paper's baseline
 architectures, the degraded federation, differentially private
 federation with the privacy attacks, the paper's evaluation matrix
 with the federation at scale, the MoE, Mamba, cross-attention and
@@ -13,7 +13,7 @@ From the root of the repository.  Imports only ``repro_torch`` (from
 which stops the run with a non-zero exit on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the seven CUDA sources from ``src/repro_torch/csrc`` (one nvcc per
+2. build the eight CUDA sources from ``src/repro_torch/csrc`` (one nvcc per
    source, in parallel) into ``build/repro_torch``, and count the HGMMA
    (``wgmma``) instructions of every bf16 flash kernel and of every
    tensor-core grid of ``mlstm_chunk_sm90`` in the built libraries
@@ -89,7 +89,11 @@ which stops the run with a non-zero exit on failure:
    (40,000, 5), (8,000, 5)
    and (128, 22) and the column encode at 40,000 and 8,000 rows, Kmax 10,
    each equal to its plain version, with its device time, its traced
-   launch, the plain version's time and its bound;
+   launch, the plain version's time and its bound; and the mLSTM backward
+   kernel (``mlstm_chunk_bwd``) at the training step's (16, 512, 1,024),
+   L 256, against ``mlstm_chunk_bwd_plain`` on the same inputs and
+   upstream gradient, each gradient within 1e-4 of its largest plain
+   entry, with its float32 bound and the split-bf16 bound beside;
 15. the paper's architectures (Fig. 8a's split, ``benchmarks/timing.py``):
    ``adult`` at 40,000 rows copied whole to 5 clients, ``ctgan_paper``,
    two epochs of one pass over 40,000 rows at batch 500 (80 steps) each
@@ -187,15 +191,25 @@ which stops the run with a non-zero exit on failure:
    ``shardings.build_param_specs`` over ``make_host_mesh()`` (NCCL, one
    rank) and one ``Transformer.prefill`` with ``ShardHints`` on 2 x 512
    tokens: logits bit-identical to the plain-tensor prefill.
+21. xLSTM training at full width and depth: xlstm-1.3b (48 layers, d_model
+   2,048, mLSTM head dim 1,024, bf16, remat) through
+   ``repro_torch.launch.train.run_federated``, 2 non-IID clients x 1 round
+   x 1 local step of 4 x 512 tokens (two mLSTM chunks of 256): finite
+   losses, clients bit-identical after the merge, one ``weighted_agg``,
+   per mLSTM layer and step two ``mlstm_chunk`` launches (the forward and
+   the remat's recompute) and one ``mlstm_chunk_bwd``, no plain version;
+   client 1's step (with the merge) in seconds and tokens/s, peak memory,
+   and the card's busy time of client 0's step, traced, over it.
 
 Phases 3-5 are the serving main path, phase 6 the CTGAN training main
 path, phase 10 the LM main path, phase 11 the path of the single-column
-encode, phase 13 the xLSTM serving path, and each run of phases 15, 16,
-17, 18, 19 and 20: the kernel launch counters are set to 0 just before
-each and read just after, every kernel of the path must have launched,
-and no plain-version counter may move.  The ``kernels`` line's
-``launches`` are the main paths' counts; phases 17's, 18's, 19's and
-20's are given apart as ``launches_phase17`` to ``launches_phase20``.
+encode, phase 13 the xLSTM serving path, phase 21 the xLSTM training
+path, and each run of phases 15, 16, 17, 18, 19 and 20: the kernel
+launch counters are set to 0 just before each and read just after,
+every kernel of the path must have launched, and no plain-version
+counter may move.  The ``kernels`` line's ``launches`` are the main
+paths' counts (``mlstm_chunk_bwd``'s from phase 21); phases 17's to
+21's are given apart as ``launches_phase17`` to ``launches_phase21``.
 The last two lines of output are the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; a longer
 record goes to ``chiprun_out/chip_smoke.json``.
@@ -312,6 +326,10 @@ DRYRUNS = (("dryrun_train", "repro_torch.launch.dryrun", "--arch",
            ("fed_dryrun", "repro_torch.launch.fed_dryrun", "--arch",
             "ctgan-paper", "--shard-map"))
 SHARD_BATCH, SHARD_SEQ = 2, 512
+# xLSTM training (phase 21): clients, local steps, batch and tokens of the
+# federated round at xlstm-1.3b's full width and depth (two mLSTM chunks
+# of 256 a sequence, so the gradient crosses a chunk boundary)
+XT_CLIENTS, XT_STEPS, XT_BATCH, XT_SEQ = 2, 1, 4, 512
 
 
 def fail(msg: str):
@@ -399,7 +417,6 @@ def device_busy(fn, repeats: int = 1, top: int = 8) -> tuple[float, list]:
     summed as they come (an xLSTM prefill leaves ~1.2 M of them), not
     through ``key_averages``, which builds a Python object per record."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     totals, by_name = [], {}
     for _ in range(repeats):
@@ -407,15 +424,27 @@ def device_busy(fn, repeats: int = 1, top: int = 8) -> tuple[float, list]:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.profiler.kineto_results.events():
-            if e.device_type() == DeviceType.CUDA:
-                ns, n = by_name.get(e.name(), (0, 0))
-                by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+        by_name = device_records(prof)
         totals.append(sum(ns for ns, _ in by_name.values()) / 1e6)
+    return statistics.median(totals), top_records(by_name, top)
+
+
+def device_records(prof) -> dict:
+    """A finished CUDA-only trace's device records summed by name, as
+    (ns, count): summed as they come, not through ``key_averages``."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    return by_name
+
+
+def top_records(by_name: dict, top: int) -> list:
+    """The ``top`` records by device time, as (name, ms, launches)."""
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return statistics.median(totals), [(name[:70], ns / 1e6, n)
-                                       for name, (ns, n) in ranked]
+    return [(name[:70], ns / 1e6, n) for name, (ns, n) in ranked]
 
 
 def traced_launch_ms(fn, kernel: str, reps: int = 20) -> float:
@@ -2822,6 +2851,102 @@ def launch_phase(dev) -> dict:
     return out
 
 
+def xlstm_train_phase(dev) -> dict:
+    """Phase 21, the xLSTM training path: ``run_federated`` at
+    xlstm-1.3b's full width and depth (bf16, remat) through the mLSTM
+    forward and backward kernels and the fused merge.  Client 0's local
+    step runs under a CUDA-only trace (the card's busy time of a step);
+    client 1's, untraced, gives the step's wall time (with the merge that
+    follows it: the run has no hook between the two)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import _batch_dict, run_federated
+    from repro_torch.models import tree_leaves
+
+    cfg = get_config("xlstm-1.3b")
+    n_mlstm = cfg.pattern.count("mlstm") * cfg.n_rep
+    steps = XT_CLIENTS * XT_STEPS
+    # per local step each mLSTM layer runs its forward twice under remat
+    # (the forward and the recompute) and its backward once
+    want = {"mlstm_chunk": (2 if cfg.remat else 1) * n_mlstm * steps,
+            "mlstm_chunk_bwd": n_mlstm * steps, "weighted_agg": 1}
+    seen, marks = {}, []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def make_batch(tokens):      # called right before each local step
+        torch.cuda.synchronize()
+        if len(marks) == 1:      # client 0's step is done
+            prof.stop()
+        marks.append(time.perf_counter())
+        if len(marks) == 1:
+            prof.start()
+        return _batch_dict(tokens, dev)
+
+    def on_round(r, states, m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        seen["counts"] = dict(ops.DISPATCH_COUNTS)
+        ref = tree_leaves(states[0].params)
+        seen["same"] = all(torch.equal(a, b) for st in states[1:] for a, b
+                           in zip(ref, tree_leaves(st.params), strict=True))
+        seen["loss"] = m["loss"].cpu().numpy()
+
+    ops.DISPATCH_COUNTS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    states, hist, w = run_federated(
+        cfg, clients=XT_CLIENTS, rounds=1, local_steps=XT_STEPS,
+        batch=XT_BATCH, seq=XT_SEQ, lr=3e-4, iid=False, weighting="fedtgan",
+        seed=21, device=dev, on_round=on_round, make_batch=make_batch)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = seen["counts"]
+    check(counts == want, f"xLSTM training launches {counts}, expected "
+          f"{want} and no plain route")
+    check(seen["same"], "xLSTM training: clients differ after the merge")
+    loss = seen["loss"]
+    check(loss.shape == (XT_CLIENTS, XT_STEPS) and np.isfinite(loss).all(),
+          f"xLSTM training: losses {loss}")
+    check(len(marks) == steps + 1, f"xLSTM training: step marks {marks}")
+    n_params = sum(t.numel() for t in tree_leaves(states[0].params))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    traced_s = marks[1] - marks[0]
+    step_s = marks[2] - marks[1]
+    by_name = device_records(prof)
+    busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6
+    top = top_records(by_name, 8)
+    check(busy_ms > 0.0, "xLSTM training: the profiler saw no device time")
+    busy = busy_ms / (step_s * 1e3)
+    tokens = XT_BATCH * XT_SEQ
+    print(f"xLSTM train: xlstm-1.3b, {n_params} parameters, bf16, remat "
+          f"{cfg.remat}, {XT_CLIENTS} non-IID clients x 1 round x {XT_STEPS} "
+          f"local step of {XT_BATCH} x {XT_SEQ} tokens (chunks of "
+          f"{cfg.mlstm_chunk}) through run_federated; client weights "
+          f"{np.round(w, 6).tolist()}; losses {loss.ravel().tolist()}; "
+          f"launches {counts} (gated); clients bit-identical after the "
+          f"merge; {run_s:.2f} s in all (setup, init and the round); peak "
+          f"memory {peak_gb:.2f} GB")
+    print(f"xLSTM local step: client 1's {step_s:.3f} s with the merge = "
+          f"{tokens / step_s:.0f} tokens/s; client 0's step, traced "
+          f"({traced_s:.1f} s): device busy {busy_ms:.1f} ms (busy share "
+          f"{busy:.3f} of client 1's step, idle {1 - busy:.3f}); top kernels "
+          f"by device time: " + "; ".join(f"{n} {ms:.1f} ms x{c}"
+                                          for n, ms, c in top))
+    del states
+    torch.cuda.empty_cache()
+    return {"params": n_params, "run_s": run_s, "losses": loss.tolist(),
+            "weights": w.tolist(), "launches": counts,
+            "peak_memory_gb": peak_gb, "step_s": step_s,
+            "tokens_per_s": tokens / step_s, "step_busy_ms": busy_ms,
+            "step_busy_share": busy, "traced_step_s": traced_s,
+            "top_kernels": top}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3412,6 +3537,44 @@ def main() -> int:
         replaces="src/repro/kernels/mlstm_chunk.py:79",
         launches=record["xlstm"]["launches"]["mlstm_chunk"],
         shape=f"({XB}, {XS}, {XD}), L {XL}, float32, with the final state"))
+    # the mLSTM backward at the xLSTM training step's shape (phase 21): the
+    # first XT_SEQ steps of the prefill's inputs, an upstream gradient
+    # drawn from a seed; the kernel and the plain backward each compute
+    # their own states, so the difference is the backward's alone
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk_bwd_cuda
+    b_args = [t[:, :XT_SEQ].contiguous() for t in m_args]
+    b_dh = torch.randn(b_args[0].shape, device=dev,
+                       generator=torch.Generator(dev).manual_seed(23))
+    bwd_gate = {}
+
+    def cmp_mlstm_bwd(got, want):
+        # each gradient within 1e-4 of the largest |plain gradient|: a
+        # gradient entry is a cancelling sum, rounded at the scale of its
+        # terms; dlog_f sums dlog_i's terms, so its scale is the larger
+        scales = [float(w.abs().max()) for w in want]
+        scales[3] = max(scales[3], scales[4])
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        bwd_gate.update({k: e / (1e-4 * sc) for k, e, sc in zip(
+            ("dq", "dk", "dv", "dlog_f", "dlog_i"), errs, scales)})
+        return (max(errs), finite and max(bwd_gate.values()) <= 1.0,
+                "each gradient 1e-4 of its largest |plain| entry (dlog_f: "
+                "of dlog_i's); of the gate: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in bwd_gate.items()))
+    bwd_bytes, bwd_ops = work.mlstm_chunk_bwd(XB, XT_SEQ, XD, XL)
+    cases.append(dict(
+        name="mlstm_chunk_bwd", stem="mlstm_chunk_bwd",
+        split_bf16_bound_ms=bound_ms(0, MLSTM_PRODUCTS * bwd_ops,
+                                     PEAK_BF16_OPS_PER_S)[0],
+        kern=lambda: mlstm_chunk_bwd_cuda(*b_args, b_dh, chunk=XL),
+        plain=lambda: plain.mlstm_chunk_bwd_plain(*b_args, b_dh, chunk=XL),
+        compare=cmp_mlstm_bwd, plain_reps=2,  # ~150 launches a plain call
+        bytes=bwd_bytes, ops=bwd_ops,
+        replaces="none: the JAX package has no Pallas backward of "
+                 "mlstm_chunk; it differentiates its jnp chunk scan "
+                 "(src/repro/models/ssm.py:198-264) with jax.grad",
+        launches=-1,             # the training path's count, from phase 21
+        shape=f"({XB}, {XT_SEQ}, {XD}), L {XL}, float32, dh drawn"))
     kernels, timing, shapes = [], {}, {}
     for case in cases + [edges_case, lm_merge_case]:
         name, kern, ref_fn = case["name"], case["kern"], case["plain"]
@@ -3451,6 +3614,10 @@ def main() -> int:
         if "f32_bound_ms" in case:
             timing[name].update(f32_bound_ms=case["f32_bound_ms"],
                                 gate=dict(mlstm_gate))
+        if "split_bf16_bound_ms" in case:
+            timing[name].update(
+                split_bf16_bound_ms=case["split_bf16_bound_ms"],
+                gate=dict(bwd_gate))
         if case["launches"] is not None:
             kernels.append({
                 "name": name, "route": "cuda",
@@ -3459,7 +3626,9 @@ def main() -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                 **({"f32_bound_ms": case["f32_bound_ms"]}
-                   if "f32_bound_ms" in case else {})})
+                   if "f32_bound_ms" in case else {}),
+                **({"split_bf16_bound_ms": case["split_bf16_bound_ms"]}
+                   if "split_bf16_bound_ms" in case else {})})
         lib_txt = ("no single PyTorch call computes it" if lib is None else
                    f"library call {lib_ms * 1e3:.2f} us"
                    + (" (the dq + dk/dv pair)" if lib in (lib_bwd, lib8_bwd)
@@ -3471,12 +3640,18 @@ def main() -> int:
             cold_txt += (f"; bound of {MLSTM_PRODUCTS} bf16 products on the "
                          f"least work; float32 bound "
                          f"{case['f32_bound_ms'] * 1e3:.2f} us")
+        if "split_bf16_bound_ms" in case:
+            cold_txt += (f"; float32 on the CUDA cores, bound on the least "
+                         f"work at 67 TFLOP/s; {MLSTM_PRODUCTS} split-bf16 "
+                         f"products on it would bound "
+                         f"{case['split_bf16_bound_ms'] * 1e3:.2f} us")
         if "products" in case:
             done, least = case["products"]
             timing[name]["products"] = [done, least]
             cold_txt += (f"; products {done:g} against the least {least} "
                          f"({done / least:.2f}x), bound on the least")
         n_txt = ("off the main path" if case["launches"] is None
+                 else "counted in phase 21" if case["launches"] < 0
                  else case["launches"])
         print(f"kernel {name} [{case['shape']}]: {ms * 1e3:.2f} us, plain "
               f"{plain_ms * 1e3:.2f} us ({source}); per call with launch "
@@ -3546,6 +3721,14 @@ def main() -> int:
     for k in kernels:
         k["launches_phase20"] = record["launch"]["launches"].get(k["name"], 0)
     lap("launch tooling")
+    # ---- 21. xLSTM training ---------------------------------------------
+    record["xlstm_train"] = xlstm_train_phase(dev)
+    for k in kernels:
+        n21 = record["xlstm_train"]["launches"].get(k["name"], 0)
+        k["launches_phase21"] = n21
+        if k["launches"] < 0:         # this path is the kernel's main path
+            k["launches"] = n21
+    lap("xLSTM training")
     record["phase_s"] = phase_s
     print(f"phase seconds {phase_s}")
 

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("vgm_encode", "vgm_decode", "segment_activations",
            "weighted_agg", "flash_attention", "flash_attention_sm90",
-           "mlstm_chunk_sm90")
+           "mlstm_chunk_sm90", "mlstm_chunk_bwd")
 # --fmad=false: no contraction into fused multiply-adds, so each kernel
 # rounds like its plain version; no --use_fast_math: IEEE expf/logf/tanhf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -125,8 +125,8 @@ def check_cuda_inputs(name: str, device: torch.device, *,
     """Raise unless every ``tensors[k] = (tensor, shape)`` is a contiguous
     CUDA tensor of ``dtype`` and that shape on ``device`` that needs no
     grad.  Every wrapper launches one kernel and records no autograd graph;
-    the backwards of ``segment_activations`` and ``flash_attention`` are
-    reached through their ``autograd.Function``s."""
+    the backwards of ``segment_activations``, ``flash_attention`` and
+    ``mlstm_chunk`` are reached through their ``autograd.Function``s."""
     if device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
                          f"{device}")
@@ -143,10 +143,10 @@ def check_cuda_inputs(name: str, device: torch.device, *,
         if t.requires_grad:
             raise RuntimeError(
                 f"{name}: {arg} requires grad, but the kernel wrappers record "
-                "no autograd graph: the encode, decode, merge and mlstm_chunk "
-                "kernels have no backward, and segment_activations and "
-                "flash_attention take theirs through ops.segment_activations "
-                "and ops.flash_attention")
+                "no autograd graph: the encode, decode and merge kernels have "
+                "no backward, and segment_activations, flash_attention and "
+                "mlstm_chunk take theirs through ops.segment_activations, "
+                "ops.flash_attention and ops.mlstm_chunk")
 
 
 def launch(name: str, stem: str, fn, device: torch.device, *args) -> None:

@@ -19,7 +19,9 @@ attention call; the port counts ``flash_attention_fwd``,
 ``flash_attention_dq`` and ``flash_attention_dkv`` launches (and
 ``flash_attention_ref`` plain calls on the CPU) so that a run shows the
 kernels ran; likewise ``mlstm_chunk`` (``mlstm_chunk_ref`` on the CPU),
-one per mLSTM layer of a prefill.
+one per mLSTM layer of a prefill, and ``mlstm_chunk_bwd``
+(``mlstm_chunk_bwd_ref``), one per mLSTM layer of a training step's
+backward.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from .. import counting
 from . import ref, work
 from ._build import DISPATCH_COUNTS
 from .flash_attention import FlashAttention
-from .mlstm_chunk import mlstm_chunk_cuda
+from .mlstm_chunk import mlstm_chunk_bwd_cuda, mlstm_chunk_cuda
 from .segment_activations import (SegmentActivations, build_span_layout,
                                   layout_tensors, segment_activations_cuda)
 from .vgm_decode import vgm_decode_table_cuda
@@ -44,7 +46,8 @@ from .weighted_agg import weighted_agg_cuda
 __all__ = ["DISPATCH_COUNTS", "dispatch_scope", "stage_dispatches",
            "vgm_encode", "vgm_encode_table", "vgm_decode_table",
            "segment_activations", "pack_segments", "weighted_average_flat",
-           "weighted_average_edges", "flash_attention", "mlstm_chunk"]
+           "weighted_average_edges", "flash_attention", "mlstm_chunk",
+           "MLSTMChunk"]
 
 
 @contextlib.contextmanager
@@ -225,28 +228,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :, :Sq, :]
 
 
-def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                log_f: torch.Tensor, log_i: torch.Tensor, *, chunk: int,
-                return_state: bool = False):
-    """Chunkwise mLSTM hidden states (BH, S, hd), float32, before the
-    output gate; q (pre-scaled), k, v (BH, S, hd), log_f, log_i (BH, S).
-    With ``return_state`` also ``(C, n, m)`` after the last step.
-
-    CPU tensors take :func:`repro_torch.kernels.ref.mlstm_chunk_plain`
-    (differentiable by autograd), counted as ``mlstm_chunk_ref``; CUDA
-    tensors launch the kernel (:mod:`repro_torch.kernels.mlstm_chunk`),
-    counted as ``mlstm_chunk``.  The kernel has no backward, as the
-    reference's Pallas kernel has none: on the card, inputs that require
-    grad under autograd raise ``NotImplementedError``."""
-    args = (q, k, v, log_f, log_i)
-    if not _plain_route(q) and torch.is_grad_enabled() and any(
-            t.requires_grad for t in args):
-        raise NotImplementedError(
-            "mlstm_chunk: the CUDA kernel has no backward; see ROADMAP queue "
-            "1, \"xLSTM training on the card\". Run the forward under "
-            "torch.no_grad()")
-    # no backward kernel: under autograd the plain version's backward ops
-    # are counted as they run
+def _mlstm_fwd(args, chunk: int, return_state: bool):
+    q = args[0]
     with counting.kernel("mlstm_chunk", lambda: work.mlstm_chunk(
             *q.shape, chunk), torch.float32):
         if _plain_route(q):
@@ -254,3 +237,63 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return ref.mlstm_chunk_plain(*args, chunk=chunk,
                                          return_state=return_state)
         return mlstm_chunk_cuda(*args, chunk=chunk, return_state=return_state)
+
+
+def _mlstm_bwd(args, dh, chunk: int):
+    q = args[0]
+    with counting.kernel("mlstm_chunk_bwd", lambda: work.mlstm_chunk_bwd(
+            *q.shape, chunk), torch.float32):
+        if _plain_route(q):
+            DISPATCH_COUNTS["mlstm_chunk_bwd_ref"] += 1
+            return ref.mlstm_chunk_bwd_plain(*args, dh, chunk=chunk)
+        return mlstm_chunk_bwd_cuda(*args, dh, chunk=chunk)
+
+
+class MLSTMChunk(torch.autograd.Function):
+    """The chunkwise mLSTM, differentiable w.r.t. q, k, v and both log
+    gates: the forward kernel and the backward kernel on the card, their
+    plain versions on the CPU and meta.  The backward recomputes what it
+    needs from the saved inputs.  The final state ``(C, n, m)`` is returned
+    (with ``return_state``) but not differentiated: a gradient that reaches
+    it raises ``NotImplementedError``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_f, log_i, chunk: int, return_state: bool):
+        args = tuple(t.detach() for t in (q, k, v, log_f, log_i))
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*args)
+        ctx.chunk = chunk
+        out = _mlstm_fwd(args, chunk, return_state)
+        return (out[0], *out[1]) if return_state else out
+
+    @staticmethod
+    def backward(ctx, dh, *state_grads):
+        if any(g is not None for g in state_grads):
+            raise NotImplementedError(
+                "mlstm_chunk: the final state (C, n, m) is not "
+                "differentiated; only h takes a gradient")
+        args = ctx.saved_tensors
+        grads = _mlstm_bwd(args, dh.float().contiguous(), ctx.chunk)
+        return (*(g.to(a.dtype) for g, a in zip(grads, args)), None, None)
+
+
+def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_f: torch.Tensor, log_i: torch.Tensor, *, chunk: int,
+                return_state: bool = False):
+    """Chunkwise mLSTM hidden states (BH, S, hd), float32, before the
+    output gate; q (pre-scaled), k, v (BH, S, hd), log_f, log_i (BH, S).
+    With ``return_state`` also ``(C, n, m)`` after the last step.
+
+    CPU and meta tensors take :func:`repro_torch.kernels.ref.
+    mlstm_chunk_plain`, counted as ``mlstm_chunk_ref``; CUDA tensors launch
+    the kernel (:mod:`repro_torch.kernels.mlstm_chunk`), counted as
+    ``mlstm_chunk``.  Under autograd, :class:`MLSTMChunk`: the gradient
+    comes from the backward kernel on the card (``mlstm_chunk_bwd``) and
+    from :func:`repro_torch.kernels.ref.mlstm_chunk_bwd_plain` elsewhere
+    (``mlstm_chunk_bwd_ref``); a gradient that reaches the final state
+    raises ``NotImplementedError``."""
+    args = (q, k, v, log_f, log_i)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in args)):
+        return _mlstm_fwd(args, int(chunk), return_state)
+    out = MLSTMChunk.apply(*args, int(chunk), return_state)
+    return (out[0], tuple(out[1:])) if return_state else out

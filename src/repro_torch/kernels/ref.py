@@ -244,6 +244,25 @@ def mlstm_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(hs, dim=1).to(q.dtype)
 
 
+def _mlstm_gates(lf: torch.Tensor, li: torch.Tensor, m: torch.Tensor,
+                 tri: torch.Tensor):
+    """One chunk's gates, the forward's arithmetic: the within-chunk
+    cumulative log forget ``b``, the log weights of the causal (query, key)
+    pairs, the rows' stabilizer ``m_pos``, the state term's weight, and the
+    state update's stabilizer, carry weight and key weights."""
+    b = torch.cumsum(lf, dim=1)
+    logw = b[:, :, None] - b[:, None, :] + li[:, None, :]
+    intra_max = torch.amax(torch.where(tri, logw, NEG_INF), dim=2)
+    m_pos = torch.maximum(b + m[:, None], intra_max)
+    inter_w = torch.exp(b + m[:, None] - m_pos)
+    b_last = b[:, -1]
+    m_new = torch.maximum(b_last + m, torch.amax(b_last[:, None] - b + li,
+                                                 dim=1))
+    carry_w = torch.exp(b_last + m - m_new)
+    kv_w = torch.exp(b_last[:, None] - b + li - m_new[:, None])
+    return logw, m_pos, inter_w, m_new, carry_w, kv_w
+
+
 def mlstm_chunk_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       log_f: torch.Tensor, log_i: torch.Tensor, *,
                       chunk: int, return_state: bool = False):
@@ -273,12 +292,8 @@ def mlstm_chunk_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hs = []
     for c0 in range(0, S, L):
         q_t, k_t, v_t = qf[:, c0:c0 + L], kf[:, c0:c0 + L], vf[:, c0:c0 + L]
-        lf, li = lf_all[:, c0:c0 + L], li_all[:, c0:c0 + L]
-        b = torch.cumsum(lf, dim=1)                              # (BH, L)
-        logw = b[:, :, None] - b[:, None, :] + li[:, None, :]    # (BH, Lq, Lk)
-        intra_max = torch.amax(torch.where(tri, logw, NEG_INF), dim=2)
-        m_pos = torch.maximum(b + m[:, None], intra_max)
-        inter_w = torch.exp(b + m[:, None] - m_pos)
+        logw, m_pos, inter_w, m_new, carry_w, kv_w = _mlstm_gates(
+            lf_all[:, c0:c0 + L], li_all[:, c0:c0 + L], m, tri)
         num_inter = (q_t @ C) * inter_w[..., None]
         den_inter = (q_t @ n[:, :, None])[..., 0] * inter_w
         w = torch.exp(torch.where(tri, logw - m_pos[:, :, None], NEG_INF))
@@ -287,14 +302,116 @@ def mlstm_chunk_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         den = torch.maximum(torch.abs(den_inter + torch.sum(scores, dim=2)),
                             torch.exp(-m_pos))
         hs.append(num / den[..., None])
-        b_last = b[:, -1]
-        m_new = torch.maximum(b_last + m, torch.amax(
-            b_last[:, None] - b + li, dim=1))
-        carry_w = torch.exp(b_last + m - m_new)
-        kv_w = torch.exp(b_last[:, None] - b + li - m_new[:, None])
         kw = k_t * kv_w[..., None]
         C = carry_w[:, None, None] * C + kw.transpose(1, 2) @ v_t
         n = carry_w[:, None] * n + torch.sum(kw, dim=1)
         m = m_new
     h = torch.cat(hs, dim=1) if hs else torch.zeros_like(qf)
     return (h, (C, n, m)) if return_state else h
+
+
+def mlstm_chunk_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          log_f: torch.Tensor, log_i: torch.Tensor,
+                          dh: torch.Tensor, *, chunk: int):
+    """The gradient of :func:`mlstm_chunk_plain`'s h for the upstream
+    gradient ``dh`` (BH, S, hd): ``(dq, dk, dv, dlog_f, dlog_i)``, float32,
+    written out as the backward kernel computes it (the spec of
+    ``csrc/mlstm_chunk_bwd.cu`` and its CPU route).
+
+    In unstabilized terms h_i = N_i / max(|D_i|, 1): h depends on no
+    stabilizer (the rows' ``m_pos``, the carried ``m``), so every
+    stabilizer is a constant here, and a clamped denominator passes no
+    gradient.  Per chunk, with the chunk-start state (C, n) recomputed by
+    the forward's walk, ``X = dh C^T``, the raw scores ``q k^T``, gated to
+    ``s`` by the causal weights ``w``, and ``A = dh v^T``:
+
+      den_pre = iw (q.n) + sum_j s,  den = max(|den_pre|, exp(-m_pos))
+      g = -(dh.num) sign(den_pre) / den^2 where |den_pre| > exp(-m_pos)
+      dscores = A / den + g,  dq = (dscores w) k + iw (X / den + g n),
+      dk = (dscores w)^T q,  dv = s^T (dh / den),
+      d log w = dscores s,  d log iw = iw (q.X / den + g q.n)
+
+    with ``dh.num = iw q.X + sum_j s A``.  A walk back over the chunks
+    carries the state gradient, ``dC <- carry_w dC + (iw q / den)^T dh``
+    and ``dn <- carry_w dn + (iw g)^T q``, into the keys' and values'
+    state terms and the carry and key weights' log gradients.  The log
+    gradients land on ``b`` (the within-chunk cumulative log forget) and
+    on ``log_i``; ``dlog_f`` is the reverse cumulative sum of ``db``
+    within each chunk."""
+    BH, S, hd = q.shape
+    L = int(chunk)
+    if L < 1 or S % L:
+        raise ValueError(f"mlstm_chunk: S={S} is not a multiple of chunk={L}")
+    dev = q.device
+    qf, kf, vf, dhf = q.float(), k.float(), v.float(), dh.float()
+    lf_all, li_all = log_f.float(), log_i.float()
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))
+    f32 = dict(dtype=torch.float32, device=dev)
+    C = torch.zeros((BH, hd, hd), **f32)
+    n = torch.zeros((BH, hd), **f32)
+    m = torch.zeros((BH,), **f32)
+    starts, gates = [], []
+    for c0 in range(0, S, L):           # the chunk-start states
+        sl = slice(c0, c0 + L)
+        gate = _mlstm_gates(lf_all[:, sl], li_all[:, sl], m, tri)
+        starts.append((C, n))
+        gates.append(gate)
+        _, _, _, m, carry_w, kv_w = gate
+        kw = kf[:, sl] * kv_w[..., None]
+        C = carry_w[:, None, None] * C + kw.transpose(1, 2) @ vf[:, sl]
+        n = carry_w[:, None] * n + torch.sum(kw, dim=1)
+    dq, dk, dv, db, dli, dstate = [], [], [], [], [], []
+    for ci, c0 in enumerate(range(0, S, L)):    # each chunk's own terms
+        sl = slice(c0, c0 + L)
+        q_t, k_t, v_t, dh_t = qf[:, sl], kf[:, sl], vf[:, sl], dhf[:, sl]
+        (C, n), (logw, m_pos, iw, _, _, _) = starts[ci], gates[ci]
+        w = torch.exp(torch.where(tri, logw - m_pos[:, :, None], NEG_INF))
+        s = (q_t @ k_t.transpose(1, 2)) * w
+        A = torch.where(tri, dh_t @ v_t.transpose(1, 2), 0.0)
+        X = dh_t @ C.transpose(1, 2)
+        qn = (q_t @ n[:, :, None])[..., 0]
+        qX = torch.sum(q_t * X, dim=2)
+        den_pre = iw * qn + torch.sum(s, dim=2)
+        floor = torch.exp(-m_pos)
+        den = torch.maximum(torch.abs(den_pre), floor)
+        hnum = iw * qX + torch.sum(s * A, dim=2)
+        g = torch.where(torch.abs(den_pre) > floor,
+                        -hnum * torch.sign(den_pre) / (den * den), 0.0)
+        inv = 1.0 / den
+        dscores = torch.where(tri, A * inv[..., None] + g[..., None], 0.0)
+        ds = dscores * w
+        P = dscores * s
+        dq.append(ds @ k_t + iw[..., None] * (X * inv[..., None]
+                                              + g[..., None] * n[:, None]))
+        dk.append(ds.transpose(1, 2) @ q_t)
+        dv.append(s.transpose(1, 2) @ (dh_t * inv[..., None]))
+        db.append(iw * (qX * inv + g * qn) + torch.sum(P, dim=2)
+                  - torch.sum(P, dim=1))
+        dli.append(torch.sum(P, dim=1))
+        dstate.append((q_t * (iw * inv)[..., None], iw * g))
+    dC = torch.zeros((BH, hd, hd), **f32)    # into the state after a chunk
+    dn = torch.zeros((BH, hd), **f32)
+    for ci in reversed(range(S // L)):      # the walk back over the states
+        sl = slice(ci * L, (ci + 1) * L)
+        (C, n), (_, _, _, _, carry_w, kv_w) = starts[ci], gates[ci]
+        if ci < S // L - 1:
+            dk_state = kv_w[..., None] * (vf[:, sl] @ dC.transpose(1, 2)
+                                          + dn[:, None])
+            dk[ci] = dk[ci] + dk_state
+            dv[ci] = dv[ci] + kv_w[..., None] * (kf[:, sl] @ dC)
+            T = torch.sum(kf[:, sl] * dk_state, dim=2)
+            U = carry_w * (torch.sum(C * dC, dim=(1, 2))
+                           + torch.sum(n * dn, dim=1))
+            last = (torch.sum(T, dim=1) + U)[:, None]
+            db[ci] = torch.cat([db[ci][:, :-1] - T[:, :-1],
+                                (db[ci][:, -1:] - T[:, -1:]) + last], dim=1)
+            dli[ci] = dli[ci] + T
+        qs, ig = dstate[ci]
+        dC = carry_w[:, None, None] * dC + qs.transpose(1, 2) @ dhf[:, sl]
+        dn = carry_w[:, None] * dn + torch.sum(ig[..., None] * qf[:, sl],
+                                               dim=1)
+    dq, dk, dv = (torch.cat(t, dim=1) for t in (dq, dk, dv))
+    db, dli = torch.cat(db, dim=1), torch.cat(dli, dim=1)
+    dlf = torch.flip(torch.cumsum(torch.flip(db.reshape(BH, -1, L), [2]),
+                                  dim=2), [2]).reshape(BH, S)
+    return dq, dk, dv, dlf, dli

@@ -60,6 +60,21 @@ def mlstm_chunk(bh: int, s: int, hd: int, chunk: int) -> tuple[int, int]:
     return n_bytes, flops
 
 
+def mlstm_chunk_bwd(bh: int, s: int, hd: int, chunk: int) -> tuple[int, int]:
+    """The chunkwise mLSTM's backward, float32: q, k, v and dh (BH, S,
+    hd) and the two log gates in, dq, dk, dv and the two gates' gradients
+    out; five state products over every chunk past the first (the
+    chunk-start C recomputed from the inputs, dh C^T, the state gradient's
+    (iw q / den)^T dh, and the keys' and values' state terms v dC^T and
+    k dC) and five causal halves within each chunk (q k^T, dh v^T, ds k,
+    ds^T q, s^T dh)."""
+    nch = s // chunk
+    flops = bh * (5 * 2 * chunk * hd * hd * (nch - 1)
+                  + 5 * 2 * hd * nch * chunk * (chunk + 1) // 2)
+    n_bytes = F32 * (7 * bh * s * hd + 4 * bh * s)
+    return n_bytes, flops
+
+
 def weighted_agg(e: int, c: int, d: int) -> tuple[int, int]:
     """``e`` edges of ``c`` client vectors of ``d`` floats and their
     weights in, the ``e`` merged vectors out; a multiply-add per value."""

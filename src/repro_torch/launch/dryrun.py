@@ -32,10 +32,12 @@ FAIL record with the error; the exit code is 1 on any FAIL.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
 import traceback
+from collections import Counter
 
 import torch
 
@@ -110,11 +112,13 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
                 fsdp: bool = True, moe_mode: str = "auto",
                 residual: str = "dmodel", mesh_shape=None,
                 cfg: ModelConfig | None = None,
-                shape: InputShape | None = None):
+                shape: InputShape | None = None, reshards=None):
     """Builds one combo inside the current (fake) world and returns
     ``(run, args, meta, cfg, shape)``: ``run(*args)`` is the step.
     ``mesh_shape``, ``cfg`` and ``shape`` replace the production mesh, the
-    full config and the named input shape (the tests' small meshes)."""
+    full config and the named input shape (the tests' small meshes);
+    ``reshards`` (a Counter) takes the model's :meth:`ShardHints.regroup`
+    moves."""
     dims, axes = PRODUCTION[multi_pod]
     if mesh_shape is not None:
         dims = tuple(mesh_shape)
@@ -122,8 +126,10 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
     cfg = cfg or get_config(arch)
     shape = shape or INPUT_SHAPES[shape_name]
     pol = ShardPolicy(mesh, fsdp=fsdp, moe_mode=moe_mode)
-    model = Transformer(cfg, shard=ShardHints(dp=pol.dp, tp=pol.tp,
-                                              residual=residual))
+    hints = ShardHints(dp=pol.dp, tp=pol.tp, residual=residual)
+    if reshards is not None:
+        hints = dataclasses.replace(hints, reshards=reshards)
+    model = Transformer(cfg, shard=hints)
     params = model.init(device="meta")
     pspecs = build_param_specs(params, pol, cfg.n_experts)
     batch = input_specs(cfg, shape)
@@ -175,6 +181,7 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
         return rec
     from torch.distributed.tensor.experimental import implicit_replication
     t0 = time.time()
+    reshards: Counter = Counter()
     world = 1
     for n in dims:
         world *= n
@@ -183,7 +190,7 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
             run, args, meta, cfg, shape = lower_combo(
                 arch, shape_name, multi_pod=multi_pod, fsdp=fsdp,
                 moe_mode=moe_mode, residual=residual, mesh_shape=dims,
-                cfg=cfg, shape=shape)
+                cfg=cfg, shape=shape, reshards=reshards)
             arg_bytes = _tensor_bytes(args)
             if cfg.n_experts:      # the topk cache bug: see the function
                 clear_sharding_cache()
@@ -206,7 +213,9 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
                "flops_by_dtype": stats.flops_by_dtype,
                "kernels": stats.kernels,
                "collectives": stats.collectives,
-               "fallbacks": dict(fallbacks.fallbacks),
+               "fallbacks": {**fallbacks.fallbacks,
+                             **{f"reshard:{k}": v
+                                for k, v in reshards.items()}},
                "unknown_trip_loops": stats.unknown_trip_loops}
         if verbose:
             r = rep

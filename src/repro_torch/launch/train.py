@@ -1,9 +1,12 @@
 """Language-model training entry points, the port's copy of the JAX
 package's ``launch/train.py``.
 
-Every block kind and input kind of ``Transformer`` trains: frame
-inputs (hubert) and cross-attention (llama-3.2-vision) take the stubbed
-frontends' random embeddings (:func:`batch_maker`).  Two modes:
+Every block kind and input kind of ``Transformer`` trains, on the card
+too: frame inputs (hubert) and cross-attention (llama-3.2-vision) take
+the stubbed frontends' random embeddings (:func:`batch_maker`), and
+xLSTM's mLSTM layers take their gradient from the chunkwise backward
+kernel (``ops.mlstm_chunk`` under autograd), its sLSTM layers by
+autograd through their time loop.  Two modes:
 
 * ``--federated``: Fed-TGAN rounds over P simulated clients: the §4.2
   weights from token-frequency statistics, local Adam steps on every
@@ -14,8 +17,8 @@ frontends' random embeddings (:func:`batch_maker`).  Two modes:
   federated terms).
 
 The entry points run on the card (``device="cuda"``) unless the caller
-asks for the CPU, where the flash-attention and merge kernels run as their
-plain PyTorch versions.  ``--smoke`` takes the reduced config of the CPU
+asks for the CPU, where the flash-attention, mLSTM and merge kernels run
+as their plain PyTorch versions.  ``--smoke`` takes the reduced config of the CPU
 tests::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\

@@ -210,10 +210,20 @@ def attention_prefill(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
 
 
 def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, *,
-                     cfg: ModelConfig) -> tuple[torch.Tensor, KVCache]:
+                     cfg: ModelConfig, shard=None
+                     ) -> tuple[torch.Tensor, KVCache]:
     """One-token decode: x (B, 1, D) against a (possibly windowed) cache.
     The new key and value go to slot ``length % S_max`` (a ring buffer);
-    scores and softmax in float32 over the valid slots."""
+    scores and softmax in float32 over the valid slots.
+
+    ``shard`` (:class:`repro_torch.models.ShardHints`): the query heads are
+    grouped over the KV heads on local shards.  The query takes the
+    cache's layout (its batch and head-dim shards), so the grouping
+    reshape splits no sharded dim (chatglm3-6b's 2 KV heads over 16 model
+    ranks left DTensor a local reshape it could not do); the scores' sums
+    over head-dim shards are reduced before the mask and the softmax, and
+    the output is gathered over them before its heads are flattened.
+    Each move is counted in ``shard.reshards``."""
     B = x.shape[0]
     pos = cache.length.long()                              # (B,)
     q, k_new, v_new = _project_qkv(p, x, x, cfg)
@@ -234,14 +244,20 @@ def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, *,
 
     K, hd = cfg.n_kv_heads, cfg.hd
     g = cfg.n_heads // K
+    if shard is not None:
+        q = shard.regroup(q, k_cache, {0: 0, 3: 3}, "decode_q")
     qh = q.reshape(B, K, g, hd)
     # products of the cache's dtype, summed in float32
     s = torch.einsum("bkgh,bskh->bkgs", qh.float(), k_cache.float()) \
         / math.sqrt(hd)
+    if shard is not None:
+        s = shard.regroup(s, k_cache, {0: 0, 1: 3}, "decode_scores")
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     pr = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", pr.to(v_cache.dtype).float(),
                        v_cache.float())
+    if shard is not None:
+        out = shard.regroup(out, v_cache, {0: 0}, "decode_out")
     out = out.reshape(B, 1, -1).to(x.dtype) @ p["wo"]
     return out, KVCache(k_cache, v_cache, cache.length + 1)
 

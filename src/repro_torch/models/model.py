@@ -29,6 +29,7 @@ shapes and dtypes without values, for the launch tooling's dry runs.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Iterator, NamedTuple
 
@@ -91,10 +92,13 @@ class ShardHints:
     """Activation sharding constraints: ``dp`` the batch axes, ``tp`` the
     tensor axis, ``residual`` the carry's sharding between blocks,
     ``"dmodel"`` (batch x d_model) or ``"seq"`` (Megatron sequence
-    sharding, kept for A/B runs)."""
+    sharding, kept for A/B runs).  ``reshards`` counts the layouts
+    :meth:`regroup` changed, by what it changed them for."""
     dp: tuple[str, ...] = ("data",)
     tp: str | None = "model"
     residual: str = "dmodel"
+    reshards: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter, compare=False, hash=False)
 
     def constrain(self, x, spec):
         """A DTensor redistributed to ``spec``'s placements on its mesh;
@@ -105,6 +109,23 @@ class ShardHints:
             return x
         return x.redistribute(x.device_mesh,
                               spec_placements(spec, x.device_mesh))
+
+    def regroup(self, x, like, dims: dict, what: str):
+        """A DTensor ``x`` laid out on its mesh as ``like`` (a DTensor on
+        the same mesh) is: where ``like`` is sharded on its dim ``d``, ``x``
+        is sharded on its dim ``dims[d]``, and replicated where ``dims``
+        names none (partial sums are reduced).  Counted in
+        ``reshards[what]`` when it moves ``x``; any other tensor is
+        returned unchanged."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(x, DTensor):
+            return x
+        want = [Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+                else Replicate() for p in like.placements]
+        if list(x.placements) == want:
+            return x
+        self.reshards[what] += 1
+        return x.redistribute(x.device_mesh, want)
 
 
 # factories that take a device: on the meta device they drop their
@@ -402,7 +423,8 @@ class Transformer:
                 h = rms_norm(x, blk["pre_norm"], cfg.norm_eps)
                 if kind == "attn":
                     y, cache = attn.attention_decode(blk["attn"], h, cache,
-                                                     cfg=cfg)
+                                                     cfg=cfg,
+                                                     shard=self.shard)
                 elif kind == "xattn":
                     y = self._cross(blk, h, vision)
                 elif kind == "mamba":

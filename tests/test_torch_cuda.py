@@ -51,7 +51,13 @@ as PyTorch's matrix products and ``cumsum`` do: h, C and n rtol 1e-4,
 atol 2e-4 (tighter than the reference's own kernel-vs-oracle 2e-3 /
 2e-4), the stabilizer m atol 1e-5 (one float32 ulp of a cumulative gate
 sum of ~30).  Through a whole model (the xLSTM smoke config, float32)
-the card's logits agree with the CPU's at rtol 1e-4, atol 1e-4.
+the card's logits agree with the CPU's at rtol 1e-4, atol 1e-4.  The
+mLSTM backward kernel sums its products as fused multiply-adds in tile
+order, the plain backward as PyTorch's products: each gradient within
+1e-4 of the largest |entry| of the plain gradient (dlog_f of dlog_i's,
+whose terms it sums), two calls bit-identical; one xLSTM smoke train step
+(float32, remat) on the card against the CPU: loss rtol 1e-4, each
+gradient within 1e-4 of its leaf's largest CPU entry.
 """
 import numpy as np
 import pytest
@@ -62,7 +68,8 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_dkv_cuda, flash_dq_cuda, flash_fwd_cuda)
-from repro_torch.kernels.mlstm_chunk import mlstm_chunk_cuda  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import (  # noqa: E402
+    mlstm_chunk_bwd_cuda, mlstm_chunk_cuda)
 from repro_torch.kernels.segment_activations import (  # noqa: E402
     BACKWARD_LAYOUTS, segment_activations_bwd_cuda, segment_activations_cuda)
 from repro_torch.kernels.vgm_decode import vgm_decode_table_cuda  # noqa: E402
@@ -587,15 +594,82 @@ def test_mlstm_chunk_matches_plain(cuda, case):
     torch.testing.assert_close(m, p_m, rtol=0, atol=1e-5)
 
 
-def test_mlstm_chunk_refuses_grad(cuda):
-    q, k, v, lf, li = _on(cuda, mlstm_inputs(1, 2, 32, 16))
+MLSTM_BWD_CASES = MLSTM_CASES + [
+    (16, 512, 1024, 256, None),   # the full-width training step's shape
+]
+
+
+def _mlstm_bwd_inputs(device, case):
+    BH, S, hd, chunk, log_f = case
+    args = _on(device, mlstm_inputs(BH + S + hd, BH, S, hd, log_f=log_f))
+    dh = torch.from_numpy(np.random.default_rng(BH * S).normal(
+        size=(BH, S, hd)).astype(np.float32)).to(device)
+    return args, dh, chunk
+
+
+def _close_to_largest(got, want, frac):
+    """Each gradient within ``frac`` of the plain gradient's largest
+    |entry|: each entry is a cancelling sum of many terms, which rounds at
+    the scale of its largest terms, not of the result.  dlog_f sums the
+    same terms as dlog_i (each gated score's gradient enters both), so
+    its scale is the larger of the two: under strong decay its own
+    largest entry is ~1e-12 while its terms are O(1)."""
+    scales = [float(w.abs().max()) for w in want]
+    scales[3] = max(scales[3], scales[4])
+    for g, w, name, scale in zip(got, want, ("dq", "dk", "dv", "dlog_f",
+                                             "dlog_i"), scales):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        err = float((g - w).abs().max())
+        assert err <= frac * max(scale, 1e-30), (name, err, scale)
+
+
+@pytest.mark.parametrize("case", MLSTM_BWD_CASES)
+def test_mlstm_chunk_bwd_matches_plain(cuda, case):
+    """The backward kernel against ``mlstm_chunk_bwd_plain`` on the same
+    inputs, each computing its own states: every gradient within 1e-4 of
+    the largest plain gradient.  Both sum in other orders (the kernel as
+    fused multiply-adds in tile order, the plain version as PyTorch's
+    products); dlog_f is a reverse cumulative sum within each chunk, so
+    its rounding grows with the chunk, not with S."""
+    args, dh, chunk = _mlstm_bwd_inputs(cuda, case)
+    with ops.dispatch_scope() as d:
+        got = mlstm_chunk_bwd_cuda(*args, dh, chunk=chunk)
+        torch.cuda.synchronize()
+    assert dict(d) == {"mlstm_chunk_bwd": 1}
+    want = tref.mlstm_chunk_bwd_plain(*args, dh, chunk=chunk)
+    _close_to_largest(got, want, 1e-4)
+
+
+def test_mlstm_chunk_bwd_is_bit_reproducible(cuda):
+    """Two calls at the training shape give the same bits: every sum is a
+    fixed tree or order, no atomics."""
+    args, dh, chunk = _mlstm_bwd_inputs(cuda, MLSTM_BWD_CASES[-1])
+    one = mlstm_chunk_bwd_cuda(*args, dh, chunk=chunk)
+    two = mlstm_chunk_bwd_cuda(*args, dh, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_mlstm_chunk_under_autograd_launches_both_kernels(cuda):
+    """``ops.mlstm_chunk`` under autograd: one forward launch, one backward
+    launch, no plain version; the gradient is the backward kernel's; a
+    gradient that reaches the final state raises."""
+    args, dh, chunk = _mlstm_bwd_inputs(cuda, (4, 128, 64, 32, None))
+    leaves = [t.requires_grad_() for t in args]
+    with ops.dispatch_scope() as d:
+        h = ops.mlstm_chunk(*leaves, chunk=chunk)
+        grads = torch.autograd.grad(h, leaves, dh)
+        torch.cuda.synchronize()
+    assert dict(d) == {"mlstm_chunk": 1, "mlstm_chunk_bwd": 1}
+    plain = mlstm_chunk_bwd_cuda(*(t.detach() for t in args), dh, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(grads, plain))
+    h, (C, n, m) = ops.mlstm_chunk(*leaves, chunk=chunk, return_state=True)
+    with pytest.raises(NotImplementedError, match="final state"):
+        torch.autograd.grad(C.sum(), leaves[0])
     with pytest.raises(RuntimeError, match="requires grad"):
-        mlstm_chunk_cuda(q.requires_grad_(), k, v, lf, li, chunk=16)
-    with pytest.raises(NotImplementedError, match="xLSTM training"):
-        ops.mlstm_chunk(q, k, v, lf, li, chunk=16)
-    with torch.no_grad():
-        assert ops.mlstm_chunk(q.detach(), k, v, lf, li,
-                               chunk=16).shape == (2, 32, 16)
+        mlstm_chunk_cuda(*leaves, chunk=chunk)
+    with pytest.raises(ValueError, match="dh has shape"):
+        mlstm_chunk_bwd_cuda(*(t.detach() for t in args),
+                             dh[:, :-1].contiguous(), chunk=chunk)
 
 
 def test_mlstm_chunk_wrapper_checks_shapes(cuda):
@@ -645,6 +719,44 @@ def test_xlstm_prefill_on_the_card_matches_the_cpu(cuda):
     assert dict(d) == {"mlstm_chunk": 2}
     torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(n_card.cpu(), n_cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_xlstm_train_step_on_the_card_matches_the_cpu(cuda):
+    """The xlstm-1.3b smoke model (float32, remat on, 2 chunks of 32) takes
+    one train step on the card and on the CPU from the same parameters and
+    batch, TF32 off: losses rtol 1e-4, every gradient within 1e-4 of its
+    leaf's largest CPU gradient (the kernels sum in other orders than
+    PyTorch's CPU products; the gradient of a leaf is a cancelling sum);
+    per mLSTM layer two forward launches (the forward and the remat's
+    recompute) and one backward launch, no plain version."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Transformer, tree_leaves, tree_unflatten
+    cfg = dataclasses.replace(get_smoke_config("xlstm-1.3b"), dtype="float32",
+                              remat=True)
+    model = Transformer(cfg)
+    params = model.init(seed=5, device="cpu")
+    params_c = tree_unflatten(params, [t.detach().to(cuda).requires_grad_()
+                                       for t in tree_leaves(params)])
+    tk = torch.randint(0, cfg.vocab, (2, 64),
+                       generator=torch.Generator().manual_seed(5))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with ops.dispatch_scope() as d:
+        loss_c, _ = model.loss(params_c, {"tokens": tk.to(cuda),
+                                          "labels": tk.to(cuda)})
+        grads_c = torch.autograd.grad(loss_c, tree_leaves(params_c))
+        torch.cuda.synchronize()
+    n_mlstm = cfg.pattern.count("mlstm") * cfg.n_rep
+    assert dict(d) == {"mlstm_chunk": 2 * n_mlstm,
+                       "mlstm_chunk_bwd": n_mlstm}
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    loss, _ = model.loss(params, {"tokens": tk, "labels": tk})
+    grads = torch.autograd.grad(loss, leaves)
+    torch.testing.assert_close(loss_c.cpu(), loss, rtol=1e-4, atol=0)
+    for g_c, g in zip(grads_c, grads):
+        assert float((g_c.cpu() - g).abs().max()) <= 1e-4 * max(
+            float(g.abs().max()), 1e-30)
 
 
 def _dp_setup(device, n_rows=1200):

@@ -31,3 +31,28 @@ ARCHS = ['llama3-8b', 'smollm-135m', 'chatglm3-6b', 'qwen2.5-32b',
 @pytest.mark.parametrize("arch", ARCHS)
 def test_smoke_combo_on_a_2x2_mesh(arch, mode):
     check_smoke_combo(arch, mode)
+
+
+def test_decode_groups_query_heads_locally_past_the_kv_heads():
+    """chatglm3-6b's grouping (32 query heads over 2 KV heads, 16 to a
+    group) at its smoke widths, decode, on a fake 2x16 mesh: 2 KV heads
+    over 16 model ranks.  The query takes the cache's layout before the
+    grouping reshape, so the combo is OK (its full-size 16x16 decode_32k
+    failed with a local reshape DTensor could not do); each attention
+    layer counts its three moves in the record, as the gathers are
+    counted."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import InputShape
+    from torch_dryrun_cases import dryrun
+    cfg = dataclasses.replace(get_smoke_config("chatglm3-6b"), n_heads=32,
+                              head_dim=32)
+    shape = InputShape("decode_32k", 4096, 16, "decode")
+    rec = dryrun.run_combo("chatglm3-6b", "decode_32k", mesh_shape=(2, 16),
+                           cfg=cfg, shape=shape, verbose=False)
+    assert rec["status"] == "OK", rec.get("traceback")
+    assert rec["memory"]["argument_size_in_bytes"] == \
+        dryrun.spec_argument_bytes(cfg, shape, (2, 16))
+    for what in ("decode_q", "decode_scores", "decode_out"):
+        assert rec["fallbacks"][f"reshard:{what}"] == cfg.n_layers

@@ -54,6 +54,9 @@ from repro_torch.optim import optimizers as topt  # noqa: E402
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
 ARCHS = ["llama3-8b", "smollm-135m"]
+# the gradient and run_federated tests also train xLSTM: its mLSTM layers
+# through the plain forward and backward of the chunkwise kernel
+GRAD_ARCHS = ARCHS + ["xlstm-1.3b"]
 CPU = torch.device("cpu")
 
 
@@ -178,11 +181,27 @@ def test_forward_and_loss_match_reference(arch):
         assert float(metrics["moe_aux"]) == 0.0
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def _remat_step_calls(cfg) -> dict:
+    """Plain-route calls of one loss and gradient with remat on: per
+    attention layer the flash forward, the recompute's forward, dq and
+    dk/dv; per mLSTM layer the forward, the recompute's forward and the
+    backward."""
+    n = {kind: cfg.pattern.count(kind) * cfg.n_rep for kind in
+         ("attn", "mlstm")}
+    calls = {"flash_attention_ref": 4 * n["attn"],
+             "mlstm_chunk_ref": 2 * n["mlstm"],
+             "mlstm_chunk_bwd_ref": n["mlstm"]}
+    return {k: v for k, v in calls.items() if v}
+
+
+@pytest.mark.parametrize("arch", GRAD_ARCHS)
 def test_train_step_gradients_match_reference(arch):
     """The gradient of the loss w.r.t. every parameter, through the flash
     route with remat on (each layer under torch.utils.checkpoint): 2
-    flash forwards per layer (the recompute) and one backward."""
+    flash forwards per attention layer (the recompute) and one backward;
+    for xLSTM, 2 forwards of the chunkwise mLSTM per mLSTM layer and one
+    plain backward (``mlstm_chunk_bwd_plain``), against ``jax.grad`` of the
+    reference's jnp chunk scan."""
     jparams, params = _carried(arch)
     tk = _tokens(4, 2, 64, _cfg(arch).vocab)
     jbatch = {"tokens": jnp.asarray(tk), "labels": jnp.asarray(tk)}
@@ -192,12 +211,10 @@ def test_train_step_gradients_match_reference(arch):
     model = Transformer(cfg)
     batch = {"tokens": torch.from_numpy(tk).long(),
              "labels": torch.from_numpy(tk).long()}
-    before = ops.DISPATCH_COUNTS["flash_attention_ref"]
-    loss, _ = model.loss(params, batch)
-    grads = torch.autograd.grad(loss, tree_leaves(params))
-    # per layer: forward, the recompute's forward, dq and dk/dv
-    assert ops.DISPATCH_COUNTS["flash_attention_ref"] - before \
-        == 4 * cfg.n_layers
+    with ops.dispatch_scope() as calls:
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+    assert dict(calls) == _remat_step_calls(cfg)
     got = _as_reference(tree_unflatten(params, grads))
     want = _flatten(jgrads)
     assert set(got) == set(want)
@@ -296,7 +313,17 @@ def test_run_federated_round_matches_reference():
     """One round, 4 non-IID clients, fedtgan weights, 2 local steps each,
     from the reference's initial parameters: the weights, the mean loss,
     and the merged parameters every client holds."""
-    arch, lr = "smollm-135m", 1e-3
+    _check_federated_round("smollm-135m")
+
+
+def test_xlstm_run_federated_round_matches_reference():
+    """The same round for xLSTM: its mLSTM layers through the plain
+    forward and backward of the chunkwise kernel."""
+    _check_federated_round("xlstm-1.3b")
+
+
+def _check_federated_round(arch):
+    lr = 1e-3
     kw = dict(clients=4, rounds=1, local_steps=2, batch=2, seq=64, lr=lr,
               iid=False, seed=0, weighting="fedtgan")
     jstates, jhist, jw = jtrain.run_federated(_jcfg(arch), **kw)
