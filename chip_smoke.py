@@ -15,9 +15,12 @@ which stops the run with a non-zero exit on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the eight CUDA sources from ``src/repro_torch/csrc`` (one nvcc per
    source, in parallel) into ``build/repro_torch``, and count the HGMMA
-   (``wgmma``) instructions of every bf16 flash kernel and of every
-   tensor-core grid of ``mlstm_chunk_sm90`` in the built libraries
-   (``cuobjdump -sass``): each must have some;
+   (``wgmma``) instructions of every bf16 flash kernel, of every
+   tensor-core grid of ``mlstm_chunk_sm90`` and of every product grid of
+   ``mlstm_chunk_bwd`` in the built libraries (``cuobjdump -sass``): each
+   must have some; trace one call of each mLSTM kernel by grid (the
+   forward at the prefill's shape, the backward at the training step's:
+   one launch of each of its eleven grids);
 3. register two tenants at full width: ``adult`` and ``intrusion`` from
    ``make_dataset`` at the paper's 40,000 rows, encoders fitted on the card,
    a ``ctgan_paper.CONFIG`` generator (z 128, hidden (256, 256)) from a fixed
@@ -91,9 +94,12 @@ which stops the run with a non-zero exit on failure:
    each equal to its plain version, with its device time, its traced
    launch, the plain version's time and its bound; and the mLSTM backward
    kernel (``mlstm_chunk_bwd``) at the training step's (16, 512, 1,024),
-   L 256, against ``mlstm_chunk_bwd_plain`` on the same inputs and
-   upstream gradient, each gradient within 1e-4 of its largest plain
-   entry, with its float32 bound and the split-bf16 bound beside;
+   L 256, and at the prefill's (16, 2,048, 1,024), against
+   ``mlstm_chunk_bwd_plain`` on the same inputs and upstream gradient,
+   each gradient within 1e-4 of its largest plain entry (its share of the
+   gate printed), with its float32 bound, the split-bf16 bound of the
+   bf16 products it does (three a float32 product, six in q k^T) and the
+   HGMMA count of each product grid beside;
 15. the paper's architectures (Fig. 8a's split, ``benchmarks/timing.py``):
    ``adult`` at 40,000 rows copied whole to 5 clients, ``ctgan_paper``,
    two epochs of one pass over 40,000 rows at batch 500 (80 steps) each
@@ -199,7 +205,8 @@ which stops the run with a non-zero exit on failure:
    per mLSTM layer and step two ``mlstm_chunk`` launches (the forward and
    the remat's recompute) and one ``mlstm_chunk_bwd``, no plain version;
    client 1's step (with the merge) in seconds and tokens/s, peak memory,
-   and the card's busy time of client 0's step, traced, over it.
+   and the card's busy time of client 0's step, traced, over it, with
+   the mLSTM kernels' grids' share of that busy time.
 
 Phases 3-5 are the serving main path, phase 6 the CTGAN training main
 path, phase 10 the LM main path, phase 11 the path of the single-column
@@ -214,11 +221,17 @@ The last two lines of output are the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; a longer
 record goes to ``chiprun_out/chip_smoke.json``.
 
-    python3 chip_smoke.py --encode-shapes [--tree DIR]
+    python3 chip_smoke.py --ab {encode,mlstm-bwd,host} [--tree DIR]
 
-runs phases 1-2 and the encode's shape line alone, for the ``repro_torch``
-of the checkout at ``DIR`` (default: this one): run in turns on two
-checkouts in one call, it compares their encode kernels on one card.
+runs the card line, the build and one measurement alone, for the
+``repro_torch`` of the checkout at ``DIR`` (default: this one): the
+encode's shape line; phase 14's lines of the mLSTM backward at the
+training step's and the prefill's shapes, each with its grids' device
+times in one traced call; or phase 10's LM round and phases 3-5's
+serving drains on the wall clock.  Run in turns on two checkouts in one
+call (parent, change, change, parent), it compares them on one card.
+The bounds read the checkout's ``kernels/work.py``: a checkout older
+than the formula a line needs takes this one's file.
 """
 from __future__ import annotations
 
@@ -278,6 +291,14 @@ ENCODE_KMAX = 10
 MLSTM_GRIDS = ("mlstm_gates", "mlstm_prep", "mlstm_scores", "mlstm_main")
 # bf16 products the mLSTM kernel does for each product of its least work
 MLSTM_PRODUCTS = 3
+# the eleven grids of one mlstm_chunk_bwd call, and nothing else in its
+# trace; the grids whose products run on the tensor cores, by their
+# mangled names in the built library
+MLSTM_BWD_GRIDS = ("mlstm_gates", "mlstm_prep<true>", "bwd_walk<false>",
+                   "bwd_xproj", "bwd_scores", "bwd_rows", "bwd_tiles",
+                   "bwd_scale", "bwd_walk<true>", "bwd_dgrad", "bwd_finish")
+MLSTM_BWD_TC_KERNELS = ("bwd_walkILb0E", "bwd_walkILb1E", "bwd_xproj",
+                        "bwd_scores", "bwd_dgrad")
 XL_BATCH, XL_PROMPT, XL_GEN, XL_SPLIT, XL_CHUNK = 4, 2048, 32, 1792, 256
 # the paper's architectures (Fig. 8a's split): epochs of each run; an epoch
 # is one pass over a client's 40,000 rows at the config's batch
@@ -330,6 +351,9 @@ SHARD_BATCH, SHARD_SEQ = 2, 512
 # federated round at xlstm-1.3b's full width and depth (two mLSTM chunks
 # of 256 a sequence, so the gradient crosses a chunk boundary)
 XT_CLIENTS, XT_STEPS, XT_BATCH, XT_SEQ = 2, 1, 4, 512
+# the mLSTM backward's sequences: the training step's two chunks and the
+# prefill's eight (the state walks cross 8 chunks)
+MLSTM_BWD_SEQS = (XT_SEQ, XL_PROMPT)
 
 
 def fail(msg: str):
@@ -534,6 +558,194 @@ def mlstm_grid_times(dev) -> list:
     return grids
 
 
+def mlstm_bwd_inputs(dev, seq: int):
+    """The mLSTM backward's inputs: the first ``seq`` steps of the
+    prefill's (:func:`mlstm_prefill_inputs`) and an upstream gradient dh ~
+    N(0, 1) drawn from a seed."""
+    import torch
+    args = [t[:, :seq].contiguous() for t in mlstm_prefill_inputs(dev)]
+    dh = torch.randn(args[0].shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(23))
+    return args, dh
+
+
+def bwd_gate_shares(got, want) -> dict:
+    """Each gradient's largest |got - want| over its gate, 1e-4 of the
+    largest |plain| entry (dlog_f of dlog_i's: it sums dlog_i's terms); 1
+    at the gate."""
+    scales = [float(w.abs().max()) for w in want]
+    scales[3] = max(scales[3], scales[4])
+    return {k: float((g - w).abs().max()) / (1e-4 * sc) for k, g, w, sc in
+            zip(("dq", "dk", "dv", "dlog_f", "dlog_i"), got, want, scales)}
+
+
+def mlstm_bwd_grid_times(dev, seq: int, names=None) -> list:
+    """Device time of each grid of one mlstm_chunk_bwd call, 16 heads of
+    1,024, L 256, ``seq`` steps, as (name, ms, launches), from a CUDA-only
+    trace (taken early in the run: short traces late in a long run came
+    back empty).  With ``names``, the trace must hold one launch of each
+    and nothing else."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk_bwd_cuda
+    args, dh = mlstm_bwd_inputs(dev, seq)
+
+    def run():
+        return mlstm_chunk_bwd_cuda(*args, dh, chunk=XL_CHUNK)
+    run()
+    torch.cuda.synchronize()
+    grids = [(re.sub(r"^void |[(]anonymous namespace[)]::", "", g)
+              .split("(")[0], ms, n) for g, ms, n in device_busy(run,
+                                                               top=1000)[1]]
+    if names is not None:
+        check(sorted(g for g, _, _ in grids) == sorted(names)
+              and all(n == 1 for _, _, n in grids),
+              f"mlstm_chunk_bwd: the trace of one call holds {grids}, not "
+              f"one launch each of {names}")
+    return grids
+
+
+def mlstm_bwd_cases(dev) -> list:
+    """Phase 14's cases (:func:`measure_case`) of the mLSTM backward at
+    ``MLSTM_BWD_SEQS``, the training step's shape (phase 21) first: the
+    first ``seq`` steps of the prefill's inputs and a drawn ``dh``.  The
+    kernel and the plain backward each compute their own states, so the
+    difference is the backward's alone.  The gate: each gradient within
+    1e-4 of its largest |plain| entry (a gradient entry is a cancelling
+    sum, rounded at the scale of its terms; dlog_f sums dlog_i's terms, so
+    its scale is the larger).  The bound is on the bf16 products done on
+    the tensor cores (``work.mlstm_chunk_bwd_split``), the float32 bound of
+    the least work beside it."""
+    import torch
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels import work
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk_bwd_cuda
+    cases = []
+    for seq in MLSTM_BWD_SEQS:
+        args, dh = mlstm_bwd_inputs(dev, seq)
+        bh, _, hd = args[0].shape
+        least_bytes, least = work.mlstm_chunk_bwd(bh, seq, hd, XL_CHUNK)
+        done = work.mlstm_chunk_bwd_split(bh, seq, hd, XL_CHUNK)
+        gate = {}
+
+        def cmp(got, want, gate=gate):
+            errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            gate.clear()
+            gate.update(bwd_gate_shares(got, want))
+            return (max(errs), finite and max(gate.values()) <= 1.0,
+                    "each gradient 1e-4 of its largest |plain| entry "
+                    "(dlog_f: of dlog_i's); of the gate: " + ", ".join(
+                        f"{k} {v:.3f}" for k, v in gate.items()))
+        training = seq == XT_SEQ
+        cases.append(dict(
+            name="mlstm_chunk_bwd" + ("" if training else " (prefill shape)"),
+            stem="mlstm_chunk_bwd", seq=seq,
+            kern=lambda a=args, d=dh: mlstm_chunk_bwd_cuda(*a, d,
+                                                           chunk=XL_CHUNK),
+            plain=lambda a=args, d=dh: plain.mlstm_chunk_bwd_plain(
+                *a, d, chunk=XL_CHUNK),
+            # ~150 launches a plain call at two chunks, ~600 at eight
+            compare=cmp, gate=gate, plain_reps=2 if training else 1,
+            bytes=least_bytes, ops=done, peak=PEAK_BF16_OPS_PER_S,
+            f32_bound_ms=bound_ms(0, least)[0], products=(done, least),
+            hgmma=MLSTM_BWD_TC_KERNELS,
+            replaces="none: the JAX package has no Pallas backward of "
+                     "mlstm_chunk; it differentiates its jnp chunk scan "
+                     "(src/repro/models/ssm.py:198-264) with jax.grad",
+            # the training path's count, from phase 21; the prefill's
+            # shape is off the main path
+            launches=-1 if training else None,
+            shape=f"({bh}, {seq}, {hd}), L {XL_CHUNK}, float32, dh drawn"))
+    return cases
+
+
+def measure_case(case: dict, hgmma: dict) -> tuple:
+    """One kernel held against its plain version and timed (phase 14):
+    ``case`` gives the kernel and the plain version as callables, the
+    comparison (``compare``, else ``tol`` on the largest |difference|),
+    the least bytes and the operations of its bound at ``peak`` (float32
+    by default), and what the ``kernels`` line says of it (``launches``
+    None: off the main path).  Optional: ``library`` (one PyTorch call
+    that computes the same function; ``library_note`` says what it is),
+    ``also`` (a further check of the two outputs), ``f32_bound_ms`` (the
+    float32 bound of the least work, where the bound is on bf16
+    products), ``products`` (done, least), ``gate`` (the dict ``compare``
+    fills with each output's share of its gate) and ``hgmma`` (the
+    kernel's tensor-core grids, counted in ``hgmma`` by name).  Returns
+    the ``kernels`` line's entry (or None), the timing record and the
+    printed line."""
+    import torch
+    name, kern, ref_fn = case["name"], case["kern"], case["plain"]
+    out_k, out_p = kern(), ref_fn()
+    torch.cuda.synchronize()
+    if "compare" in case:
+        err, ok, tol_txt = case["compare"](out_k, out_p)
+    else:
+        err = float((out_k - out_p).abs().max())
+        ok, tol_txt = err <= case["tol"], f"{case['tol']:.3g}"
+    check(ok, f"{name}: max abs error {err:.3g}, tolerance {tol_txt}")
+    if "also" in case:
+        case["also"](out_k, out_p)
+    ms = kernel_ms(kern)
+    plain_ms = kernel_ms(ref_fn, reps=case.get("plain_reps", 20))
+    source = "device time: CUDA events behind a spin kernel"
+    call_ms, plain_call_ms = cuda_ms(kern), cuda_ms(ref_fn)
+    lib = case.get("library")
+    lib_ms = kernel_ms(lib) if lib is not None else None
+    peak = case.get("peak", PEAK_F32_OPS_PER_S)
+    b_ms, b_by = bound_ms(case["bytes"], case["ops"], peak)
+    timing = {"source": source, "call_ms": call_ms,
+              "plain_call_ms": plain_call_ms, "library_ms": lib_ms,
+              "bound_ms": b_ms, "max_abs_err": err, "ms": ms,
+              "plain_ms": plain_ms}
+    notes = ""
+    if case["stem"] == "weighted_agg":
+        timing.update(cold_ms=cold_ms(kern), library_cold_ms=cold_ms(lib),
+                      library_max_abs_err=float((lib() - out_p).abs().max()))
+        notes += (f"; cold L2: kernel {timing['cold_ms'] * 1e3:.2f} us, "
+                  f"library {timing['library_cold_ms'] * 1e3:.2f} us")
+    if "products" in case:
+        done, least = case["products"]
+        timing["products"] = [done, least]
+        notes += (f"; products {done:g} against the least {least:g} "
+                  f"({done / least:.2f}x)")
+    if "f32_bound_ms" in case:
+        timing["f32_bound_ms"] = case["f32_bound_ms"]
+        notes += (f"; float32 bound of the least work "
+                  f"{case['f32_bound_ms'] * 1e3:.2f} us")
+    if "gate" in case:
+        timing["gate"] = dict(case["gate"])
+    if "hgmma" in case and all(k in hgmma for k in case["hgmma"]):
+        timing["hgmma"] = {k: hgmma[k] for k in case["hgmma"]}
+        notes += "; HGMMA " + ", ".join(f"{k} {n}"
+                                        for k, n in timing["hgmma"].items())
+    entry = None
+    if case["launches"] is not None:
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{case['stem']}.cu",
+            "replaces": case["replaces"], "launches": case["launches"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            **({"f32_bound_ms": case["f32_bound_ms"]}
+               if "f32_bound_ms" in case else {})}
+    lib_txt = ("no single PyTorch call computes it" if lib is None else
+               f"library call {lib_ms * 1e3:.2f} us"
+               + case.get("library_note", ""))
+    n_txt = ("off the main path" if case["launches"] is None
+             else "counted in phase 21" if case["launches"] < 0
+             else case["launches"])
+    line = (f"kernel {name} [{case['shape']}]: {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us ({source}); per call with launch "
+            f"{call_ms * 1e3:.2f} us, plain {plain_call_ms * 1e3:.2f} us "
+            f"(CUDA events); bound {b_ms * 1e3:.2f} us ({b_by}: "
+            f"{case['ops']:.4g} ops at {peak / 1e12:g} TFLOP/s, "
+            f"{case['bytes']:.4g} bytes at {PEAK_BYTES_PER_S / 1e12:g} "
+            f"TB/s); max abs err {err:.3g} (tol {tol_txt}); launches "
+            f"{n_txt}; {lib_txt}{notes}")
+    return entry, timing, line
+
+
 def activation_layouts(dev, tau, serving) -> list:
     """Device time per call of the activations forward in each of its two
     layouts (the tile and the warp with its stage), each held against the
@@ -702,47 +914,37 @@ def card_line() -> str:
     return smi[0] if smi else "nvidia-smi gave nothing"
 
 
-def encode_shapes_main(tree: Path) -> int:
-    """The card, the build and the encode's shape line alone, for the
-    ``repro_torch`` of the checkout at ``tree``.  Run in turns on two
-    checkouts in one call (``--tree`` pointing at the other), it compares
-    their encode kernels on one card; the wrappers' signatures are the
-    same in every checkout that has them."""
-    import torch
-    check(torch.cuda.is_available(), "torch.cuda.is_available() is False: "
-          "this script needs a card")
-    check((tree / "src" / "repro_torch").is_dir(),
-          f"no src/repro_torch in {tree}")
-    sys.path.insert(0, str(tree / "src"))
-    from repro_torch.kernels import _build
-    print(card_line())
-    print(f"tree {tree}; kernel build: {_build.build_all():.2f} s")
-    rows = encode_shapes(torch.device("cuda", 0))
+def ab_encode(dev) -> list:
+    """The encode's shape line (:func:`encode_shapes`)."""
+    rows = encode_shapes(dev)
     print_encode_shapes(rows)
-    print(json.dumps({"tree": str(tree), "encode_shapes": rows}))
-    return 0
+    return rows
 
 
-def host_paths_main(tree: Path, rounds: int = 5, drains: int = 5) -> int:
-    """The host-bound main paths alone, for the ``repro_torch`` of the
-    checkout at ``tree``: phase 10's LM global round (smollm-135m, flash
-    kernels, ``LM_CLIENTS`` x ``LM_STEPS`` steps of ``LM_BATCH`` x
+def ab_mlstm_bwd(dev) -> list:
+    """The mLSTM backward's lines of phase 14 (:func:`mlstm_bwd_cases`,
+    :func:`measure_case`), each with its grids' device times in one traced
+    call."""
+    rows = []
+    for case in mlstm_bwd_cases(dev):
+        _, timing, line = measure_case(case, {})
+        print(line)
+        grids = mlstm_bwd_grid_times(dev, case["seq"])
+        print(f"{case['name']} grids: " + ", ".join(
+            f"{g} {t * 1e3:.2f} us" for g, t, _ in grids))
+        rows.append({"name": case["name"], "shape": case["shape"], **timing,
+                     "grids": grids})
+    return rows
+
+
+def ab_host(dev, rounds: int = 5, drains: int = 5) -> dict:
+    """The host-bound main paths: phase 10's LM global round (smollm-135m,
+    flash kernels, ``LM_CLIENTS`` x ``LM_STEPS`` steps of ``LM_BATCH`` x
     ``LM_SEQ`` tokens) and phases 3-5's 16-request serving drain under
-    both schedulers, each timed on the wall clock after a warm-up.  Run in
-    turns on two checkouts in one call (parent, change, change, parent),
-    it compares what the host costs each path; the entry points it calls
-    are the same in every checkout that has them."""
-    import statistics
-
+    both schedulers, each timed on the wall clock after a warm-up."""
     import torch
-    check(torch.cuda.is_available(), "torch.cuda.is_available() is False: "
-          "this script needs a card")
-    check((tree / "src" / "repro_torch").is_dir(),
-          f"no src/repro_torch in {tree}")
-    sys.path.insert(0, str(tree / "src"))
     from repro_torch.configs import ctgan_paper, get_config
     from repro_torch.data import TokenDatasetSpec, client_token_streams
-    from repro_torch.kernels import _build
     from repro_torch.launch.serve import make_tenant
     from repro_torch.launch.train import (federated_round, lm_optimizer,
                                           run_federated)
@@ -752,10 +954,6 @@ def host_paths_main(tree: Path, rounds: int = 5, drains: int = 5) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    dev = torch.device("cuda", 0)
-    print(card_line())
-    print(f"tree {tree}; kernel build: {_build.build_all():.2f} s")
-
     cfg = dataclasses.replace(get_config("smollm-135m"), use_flash_kernel=True)
     states, _, w = run_federated(
         cfg, clients=LM_CLIENTS, rounds=1, local_steps=LM_STEPS,
@@ -803,7 +1001,7 @@ def host_paths_main(tree: Path, rounds: int = 5, drains: int = 5) -> int:
             if d:
                 times.append((time.perf_counter() - t0) * 1e3)
         serve_ms[sched] = times
-    out = {"tree": str(tree), "lm_round_ms": lm_ms,
+    out = {"lm_round_ms": lm_ms,
            "lm_round_median_ms": statistics.median(lm_ms),
            **{f"serve_{k}_ms": v for k, v in serve_ms.items()},
            **{f"serve_{k}_median_ms": statistics.median(v)
@@ -811,7 +1009,30 @@ def host_paths_main(tree: Path, rounds: int = 5, drains: int = 5) -> int:
     print(f"LM round ms {[round(x, 3) for x in lm_ms]}; serving drain ms "
           + "; ".join(f"{k} {[round(x, 3) for x in v]}"
                       for k, v in serve_ms.items()))
-    print(json.dumps(out))
+    return out
+
+
+AB = {"encode": ab_encode, "mlstm-bwd": ab_mlstm_bwd, "host": ab_host}
+
+
+def ab_main(what: str, tree: Path) -> int:
+    """The card, the build and one of ``AB``'s measurements alone, for the
+    ``repro_torch`` of the checkout at ``tree``.  Run in turns on two
+    checkouts in one call (parent, change, change, parent), it compares
+    them on one card; the entry points each measurement calls are the same
+    in every checkout that has them, and the bounds read the checkout's
+    ``kernels/work.py``."""
+    import torch
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False: "
+          "this script needs a card")
+    check((tree / "src" / "repro_torch").is_dir(),
+          f"no src/repro_torch in {tree}")
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import _build
+    print(card_line())
+    print(f"tree {tree}; kernel build: {_build.build_all():.2f} s")
+    out = AB[what](torch.device("cuda", 0))
+    print(json.dumps({"tree": str(tree), what: out}))
     return 0
 
 
@@ -2922,6 +3143,12 @@ def xlstm_train_phase(dev) -> dict:
     top = top_records(by_name, 8)
     check(busy_ms > 0.0, "xLSTM training: the profiler saw no device time")
     busy = busy_ms / (step_s * 1e3)
+    # the mLSTM kernels' share of the traced step: their grids' records
+    # (the forward and the backward share the gates and prep grids' names)
+    mlstm = {g.split("<")[0] for g in MLSTM_GRIDS + MLSTM_BWD_GRIDS}
+    mlstm_ms = sum(ns for g, (ns, _) in by_name.items()
+                   if re.sub(r"^void |[(]anonymous namespace[)]::", "", g)
+                   .split("(")[0].split("<")[0] in mlstm) / 1e6
     tokens = XT_BATCH * XT_SEQ
     print(f"xLSTM train: xlstm-1.3b, {n_params} parameters, bf16, remat "
           f"{cfg.remat}, {XT_CLIENTS} non-IID clients x 1 round x {XT_STEPS} "
@@ -2936,7 +3163,9 @@ def xlstm_train_phase(dev) -> dict:
           f"({traced_s:.1f} s): device busy {busy_ms:.1f} ms (busy share "
           f"{busy:.3f} of client 1's step, idle {1 - busy:.3f}); top kernels "
           f"by device time: " + "; ".join(f"{n} {ms:.1f} ms x{c}"
-                                          for n, ms, c in top))
+                                          for n, ms, c in top)
+          + f"; the mLSTM kernels' grids {mlstm_ms:.1f} ms "
+          f"({mlstm_ms / busy_ms:.4f} of the busy time)")
     del states
     torch.cuda.empty_cache()
     return {"params": n_params, "run_s": run_s, "losses": loss.tolist(),
@@ -2944,7 +3173,7 @@ def xlstm_train_phase(dev) -> dict:
             "peak_memory_gb": peak_gb, "step_s": step_s,
             "tokens_per_s": tokens / step_s, "step_busy_ms": busy_ms,
             "step_busy_share": busy, "traced_step_s": traced_s,
-            "top_kernels": top}
+            "top_kernels": top, "mlstm_ms": mlstm_ms}
 
 
 def main() -> int:
@@ -3014,7 +3243,22 @@ def main() -> int:
         hgmma[kernel] = mine[0]
     print("HGMMA instructions per mlstm_chunk_sm90 grid (cuobjdump -sass): "
           + ", ".join(f"{k} {hgmma[k]}" for k in MLSTM_TC_KERNELS))
+    counts = hgmma_counts(_build.library_path("mlstm_chunk_bwd"))
+    for kernel in MLSTM_BWD_TC_KERNELS:
+        mine = [n for fn, n in counts.items() if kernel in fn]
+        check(len(mine) == 1 and mine[0] > 0,
+              f"mlstm_chunk_bwd: HGMMA in {kernel}: {mine}, expected one "
+              "kernel with some")
+        hgmma[kernel] = mine[0]
+    print("HGMMA instructions per mlstm_chunk_bwd product grid (cuobjdump "
+          "-sass): " + ", ".join(f"{k} {hgmma[k]}"
+                                 for k in MLSTM_BWD_TC_KERNELS))
     record["hgmma"] = hgmma
+    bwd_grids = mlstm_bwd_grid_times(dev, XT_SEQ, MLSTM_BWD_GRIDS)
+    record["mlstm_bwd_grids"] = bwd_grids
+    print(f"mlstm_chunk_bwd grids at the training step's shape (16, {XT_SEQ}"
+          ", 1024), L 256 (CUDA-only trace): " + ", ".join(
+              f"{g} {t * 1e3:.2f} us" for g, t, _ in bwd_grids))
     grids = mlstm_grid_times(dev)
     record["mlstm_grids"] = grids
     # the encode's shape line traces 20-call windows; taken early, as the
@@ -3354,6 +3598,14 @@ def main() -> int:
         errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
         return max(errs), max(errs) == 0.0, "0 (exact)"
 
+    soft = torch.as_tensor(~layout.pack_pad & (np.repeat(
+        layout.kinds[:, 0], layout.wmax) < 0.5), device=dev)
+
+    def same_one_hots(got, want):
+        check(torch.equal(got[:, soft].round(), want[:, soft].round()),
+              "segment_activations: hard one-hots differ")
+    PAIR = " (the dq + dk/dv pair)"
+
     cases = [
         # the Pallas call it replaces, launches on its main path, bytes
         # moved and float ops for the bound, tolerance against the plain
@@ -3370,7 +3622,7 @@ def main() -> int:
                                                    True),
              plain=lambda: plain.segment_activations_ref(px, pu, kinds,
                                                          cfg.tau, True),
-             bytes=act_bytes, ops=act_ops, tol=2e-6,
+             also=same_one_hots, bytes=act_bytes, ops=act_ops, tol=2e-6,
              replaces="src/repro/kernels/segment_activations.py:134",
              launches=launches["segment_activations"],
              shape=f"({B}, {S} spans x Wmax {W}), hard"),
@@ -3422,7 +3674,7 @@ def main() -> int:
              products=(4, 3),
              kern=lambda: flash_dq_cuda(*bwd_args, **mask),
              plain=lambda: plain.flash_attention_dq_ref(*bwd_args, **mask),
-             library=lib_bwd, compare=cmp_grads,
+             library=lib_bwd, library_note=PAIR, compare=cmp_grads,
              bytes=flash["dq"][0], ops=flash["dq"][1],
              peak=PEAK_BF16_OPS_PER_S,
              replaces="src/repro/kernels/flash_attention.py:199",
@@ -3432,7 +3684,7 @@ def main() -> int:
              products=(6, 4),
              kern=lambda: flash_dkv_cuda(*bwd_args, **mask),
              plain=lambda: plain.flash_attention_dkv_ref(*bwd_args, **mask),
-             library=lib_bwd, compare=cmp_grads,
+             library=lib_bwd, library_note=PAIR, compare=cmp_grads,
              bytes=flash["dkv"][0], ops=flash["dkv"][1],
              peak=PEAK_BF16_OPS_PER_S,
              replaces="src/repro/kernels/flash_attention.py:216",
@@ -3453,7 +3705,7 @@ def main() -> int:
              products=(4, 3),
              kern=lambda: flash_dq_cuda(*bwd8, **mask8),
              plain=lambda: plain.flash_attention_dq_ref(*bwd8, **mask8),
-             library=lib8_bwd, compare=cmp_grads,
+             library=lib8_bwd, library_note=PAIR, compare=cmp_grads,
              bytes=flash8["dq"][0], ops=flash8["dq"][1],
              peak=PEAK_BF16_OPS_PER_S,
              replaces="src/repro/kernels/flash_attention.py:199",
@@ -3463,7 +3715,7 @@ def main() -> int:
              products=(6, 4),
              kern=lambda: flash_dkv_cuda(*bwd8, **mask8),
              plain=lambda: plain.flash_attention_dkv_ref(*bwd8, **mask8),
-             library=lib8_bwd, compare=cmp_grads,
+             library=lib8_bwd, library_note=PAIR, compare=cmp_grads,
              bytes=flash8["dkv"][0], ops=flash8["dkv"][1],
              peak=PEAK_BF16_OPS_PER_S,
              replaces="src/repro/kernels/flash_attention.py:216",
@@ -3527,138 +3779,27 @@ def main() -> int:
     # bound of the least work beside it
     cases.append(dict(
         name="mlstm_chunk", stem="mlstm_chunk_sm90",
-        f32_bound_ms=bound_ms(0, mlstm_ops)[0],
         kern=lambda: mlstm_chunk_cuda(*m_args, chunk=XL, return_state=True),
         plain=lambda: plain.mlstm_chunk_plain(*m_args, chunk=XL,
                                               return_state=True),
-        compare=cmp_mlstm, plain_reps=2,     # ~280 launches per plain call
+        compare=cmp_mlstm, gate=mlstm_gate,
+        plain_reps=2,                        # ~280 launches per plain call
         bytes=mlstm_bytes, ops=MLSTM_PRODUCTS * mlstm_ops,
-        peak=PEAK_BF16_OPS_PER_S,
+        peak=PEAK_BF16_OPS_PER_S, f32_bound_ms=bound_ms(0, mlstm_ops)[0],
+        products=(MLSTM_PRODUCTS * mlstm_ops, mlstm_ops),
         replaces="src/repro/kernels/mlstm_chunk.py:79",
         launches=record["xlstm"]["launches"]["mlstm_chunk"],
         shape=f"({XB}, {XS}, {XD}), L {XL}, float32, with the final state"))
-    # the mLSTM backward at the xLSTM training step's shape (phase 21): the
-    # first XT_SEQ steps of the prefill's inputs, an upstream gradient
-    # drawn from a seed; the kernel and the plain backward each compute
-    # their own states, so the difference is the backward's alone
-    from repro_torch.kernels.mlstm_chunk import mlstm_chunk_bwd_cuda
-    b_args = [t[:, :XT_SEQ].contiguous() for t in m_args]
-    b_dh = torch.randn(b_args[0].shape, device=dev,
-                       generator=torch.Generator(dev).manual_seed(23))
-    bwd_gate = {}
-
-    def cmp_mlstm_bwd(got, want):
-        # each gradient within 1e-4 of the largest |plain gradient|: a
-        # gradient entry is a cancelling sum, rounded at the scale of its
-        # terms; dlog_f sums dlog_i's terms, so its scale is the larger
-        scales = [float(w.abs().max()) for w in want]
-        scales[3] = max(scales[3], scales[4])
-        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-        finite = all(bool(torch.isfinite(g).all()) for g in got)
-        bwd_gate.update({k: e / (1e-4 * sc) for k, e, sc in zip(
-            ("dq", "dk", "dv", "dlog_f", "dlog_i"), errs, scales)})
-        return (max(errs), finite and max(bwd_gate.values()) <= 1.0,
-                "each gradient 1e-4 of its largest |plain| entry (dlog_f: "
-                "of dlog_i's); of the gate: " + ", ".join(
-                    f"{k} {v:.3f}" for k, v in bwd_gate.items()))
-    bwd_bytes, bwd_ops = work.mlstm_chunk_bwd(XB, XT_SEQ, XD, XL)
-    cases.append(dict(
-        name="mlstm_chunk_bwd", stem="mlstm_chunk_bwd",
-        split_bf16_bound_ms=bound_ms(0, MLSTM_PRODUCTS * bwd_ops,
-                                     PEAK_BF16_OPS_PER_S)[0],
-        kern=lambda: mlstm_chunk_bwd_cuda(*b_args, b_dh, chunk=XL),
-        plain=lambda: plain.mlstm_chunk_bwd_plain(*b_args, b_dh, chunk=XL),
-        compare=cmp_mlstm_bwd, plain_reps=2,  # ~150 launches a plain call
-        bytes=bwd_bytes, ops=bwd_ops,
-        replaces="none: the JAX package has no Pallas backward of "
-                 "mlstm_chunk; it differentiates its jnp chunk scan "
-                 "(src/repro/models/ssm.py:198-264) with jax.grad",
-        launches=-1,             # the training path's count, from phase 21
-        shape=f"({XB}, {XT_SEQ}, {XD}), L {XL}, float32, dh drawn"))
+    # the mLSTM backward at the training step's shape (phase 21) and the
+    # prefill's
+    cases += mlstm_bwd_cases(dev)
     kernels, timing, shapes = [], {}, {}
     for case in cases + [edges_case, lm_merge_case]:
-        name, kern, ref_fn = case["name"], case["kern"], case["plain"]
-        out_k, out_p = kern(), ref_fn()
-        torch.cuda.synchronize()
-        if "compare" in case:
-            err, ok, tol_txt = case["compare"](out_k, out_p)
-        else:
-            err = float((out_k - out_p).abs().max())
-            ok, tol_txt = err <= case["tol"], f"{case['tol']:.3g}"
-        check(ok, f"{name}: max abs error {err:.3g}, tolerance {tol_txt}")
-        if name == "segment_activations":
-            soft = ~layout.pack_pad & (np.repeat(layout.kinds[:, 0],
-                                                 layout.wmax) < 0.5)
-            soft = torch.as_tensor(soft, device=dev)
-            check(torch.equal(out_k[:, soft].round(), out_p[:, soft].round()),
-                  f"{name}: hard one-hots differ")
-        ms = kernel_ms(kern)
-        plain_ms = kernel_ms(ref_fn, reps=case.get("plain_reps", 20))
-        source = "device time: CUDA events behind a spin kernel"
-        call_ms, plain_call_ms = cuda_ms(kern), cuda_ms(ref_fn)
-        lib = case.get("library")
-        lib_ms = kernel_ms(lib) if lib is not None else None
-        extra = {}
-        if case["stem"] == "weighted_agg":
-            lib_err = float((lib() - out_p).abs().max())
-            extra = {"cold_ms": cold_ms(kern), "library_cold_ms": cold_ms(lib),
-                     "library_max_abs_err": lib_err}
-        b_ms, b_by = bound_ms(case["bytes"], case["ops"],
-                              case.get("peak", PEAK_F32_OPS_PER_S))
-        shapes[name] = case["shape"]
-        timing[name] = {"source": source,
-                        "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-                        "library_ms": lib_ms, "bound_ms": b_ms,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        **extra}
-        if "f32_bound_ms" in case:
-            timing[name].update(f32_bound_ms=case["f32_bound_ms"],
-                                gate=dict(mlstm_gate))
-        if "split_bf16_bound_ms" in case:
-            timing[name].update(
-                split_bf16_bound_ms=case["split_bf16_bound_ms"],
-                gate=dict(bwd_gate))
-        if case["launches"] is not None:
-            kernels.append({
-                "name": name, "route": "cuda",
-                "source": f"src/repro_torch/csrc/{case['stem']}.cu",
-                "replaces": case["replaces"], "launches": case["launches"],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                **({"f32_bound_ms": case["f32_bound_ms"]}
-                   if "f32_bound_ms" in case else {}),
-                **({"split_bf16_bound_ms": case["split_bf16_bound_ms"]}
-                   if "split_bf16_bound_ms" in case else {})})
-        lib_txt = ("no single PyTorch call computes it" if lib is None else
-                   f"library call {lib_ms * 1e3:.2f} us"
-                   + (" (the dq + dk/dv pair)" if lib in (lib_bwd, lib8_bwd)
-                      else ""))
-        cold_txt = ("" if not extra else
-                    f"; cold L2: kernel {extra['cold_ms'] * 1e3:.2f} us, "
-                    f"library {extra['library_cold_ms'] * 1e3:.2f} us")
-        if "f32_bound_ms" in case:
-            cold_txt += (f"; bound of {MLSTM_PRODUCTS} bf16 products on the "
-                         f"least work; float32 bound "
-                         f"{case['f32_bound_ms'] * 1e3:.2f} us")
-        if "split_bf16_bound_ms" in case:
-            cold_txt += (f"; float32 on the CUDA cores, bound on the least "
-                         f"work at 67 TFLOP/s; {MLSTM_PRODUCTS} split-bf16 "
-                         f"products on it would bound "
-                         f"{case['split_bf16_bound_ms'] * 1e3:.2f} us")
-        if "products" in case:
-            done, least = case["products"]
-            timing[name]["products"] = [done, least]
-            cold_txt += (f"; products {done:g} against the least {least} "
-                         f"({done / least:.2f}x), bound on the least")
-        n_txt = ("off the main path" if case["launches"] is None
-                 else "counted in phase 21" if case["launches"] < 0
-                 else case["launches"])
-        print(f"kernel {name} [{case['shape']}]: {ms * 1e3:.2f} us, plain "
-              f"{plain_ms * 1e3:.2f} us ({source}); per call with launch "
-              f"{call_ms * 1e3:.2f} us, plain {plain_call_ms * 1e3:.2f} us "
-              f"(CUDA events); bound {b_ms * 1e3:.2f} us ({b_by}); max abs "
-              f"err {err:.3g} (tol {tol_txt}); launches {n_txt}; "
-              f"{lib_txt}{cold_txt}")
+        entry, timing[case["name"]], line = measure_case(case, hgmma)
+        shapes[case["name"]] = case["shape"]
+        if entry is not None:
+            kernels.append(entry)
+        print(line)
     sweep = activation_layouts(dev, cfg.tau, (px, pu, kinds))
     print("segment_activations forward by layout (device time per call, "
           "hard): " + "; ".join(
@@ -3744,17 +3885,13 @@ def main() -> int:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--encode-shapes", action="store_true",
-                    help="run only the card, the build and the encode's "
-                    "shape line")
-    ap.add_argument("--host-paths", action="store_true",
-                    help="run only the LM round and the serving drains, "
-                    "timed")
+    ap.add_argument("--ab", choices=sorted(AB),
+                    help="run only the card, the build and this "
+                    "measurement: the encode's shape line, the mLSTM "
+                    "backward's lines, or the LM round and the serving "
+                    "drains timed")
     ap.add_argument("--tree", type=Path, default=ROOT,
-                    help="with --encode-shapes or --host-paths: the "
-                    "checkout whose repro_torch to time (default: this one)")
+                    help="with --ab: the checkout whose repro_torch to time "
+                    "(default: this one)")
     cli = ap.parse_args()
-    if cli.encode_shapes:
-        sys.exit(encode_shapes_main(cli.tree.resolve()))
-    sys.exit(host_paths_main(cli.tree.resolve()) if cli.host_paths
-             else main())
+    sys.exit(ab_main(cli.ab, cli.tree.resolve()) if cli.ab else main())

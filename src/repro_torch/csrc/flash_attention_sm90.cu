@@ -563,6 +563,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // (Geo<hd>::PW), swizzled over the panel's row bytes.
 int map_rows(CUtensorMap* map, const void* p, int bh, int s, int hd,
              int rows) {
+  if (int e = bind_context()) return e;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return kNoEncoder;
   const int pw = hd % 64 == 0 ? 64 : hd % 32 == 0 ? 32 : 16;
@@ -582,6 +583,7 @@ int map_rows(CUtensorMap* map, const void* p, int bh, int s, int hd,
 
 // n float32 values, boxes of `len`.
 int map_vec(CUtensorMap* map, const float* p, long long n, int len) {
+  if (int e = bind_context()) return e;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return kNoEncoder;
   const cuuint64_t dims[1] = {(cuuint64_t)n}, strides[1] = {0};

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the sm_90a tensor-core kernels
-// (flash_attention_sm90.cu, mlstm_chunk_sm90.cu): mbarriers, TMA copies
-// and their tensor maps, `wgmma` descriptors and products, the split of
-// float32 values into bf16 terms and the accumulator fragment layout.
+// (flash_attention_sm90.cu, mlstm_chunk_sm90.cu, mlstm_chunk_bwd.cu):
+// mbarriers, TMA copies and their tensor maps, a ring of TMA stages,
+// `wgmma` descriptors and products, the split of float32 values into bf16
+// terms and the accumulator fragment layout.
 // Included once per source, inside no namespace; every name is internal
 // to the including library.
 #pragma once
@@ -299,6 +300,36 @@ __device__ __forceinline__ void fence_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+// ---- the TMA ring -----------------------------------------------------------
+
+// A ring of S shared-memory stages filled by TMA: the 1024-aligned start
+// of the tiles (for the swizzle), then one mbarrier per stage and the
+// count of warps done with each stage.
+template <int S, int kWarps>
+struct Ring {
+  uint32_t base, bars;
+  unsigned* done;
+  __device__ Ring(unsigned char* raw, uint32_t tile_bytes) {
+    const uint32_t s = smem_u32(raw);
+    base = (s + 1023) & ~1023u;
+    bars = base + tile_bytes;
+    done = reinterpret_cast<unsigned*>(raw + (base - s) + tile_bytes + 8 * S);
+    if (threadIdx.x == 0) {
+      for (int b = 0; b < S; ++b) bar_init(bars + 8 * b, 1);
+      for (int b = 0; b < S; ++b) done[b] = 0;
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+  }
+  __device__ uint32_t full(int st) const { return bars + 8 * st; }
+  // Lane 0 of each warp, once its products on stage st are done: true for
+  // the last of the block's warps, which then refills the stage.
+  __device__ bool release(int st) {
+    return atomicAdd(done + st, 1u) % kWarps == kWarps - 1;
+  }
+  static constexpr size_t slack() { return 1024 + 12 * S; }
+};
+
 // ---- tensor maps ----------------------------------------------------------
 
 // Error codes past CUDA's own: the tensor-map encoder was not found, or
@@ -334,10 +365,23 @@ EncodeTiled encoder() {
 }
 
 
+// The encoder needs a context current on the calling thread.  A thread
+// whose first CUDA work is a tensor map has none: autograd runs a backward
+// on a thread of its own, and PyTorch sets that thread's device only when
+// it differs from the runtime's current one.  cudaSetDevice to the
+// runtime's current device makes that device's primary context current, as
+// a kernel launch would.
+int bind_context() {
+  int dev = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  return (int)cudaSetDevice(dev);
+}
+
 // A row-major (rows, cols) bf16 matrix, cols a multiple of 64, in boxes of
 // box_rows rows x 64 columns (128-byte rows, 128-byte swizzle).
 int map_bf16_2d(CUtensorMap* map, const void* p, long long rows, int cols,
                 int box_rows) {
+  if (int e = bind_context()) return e;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return kNoEncoder;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};

@@ -18,12 +18,15 @@ launch.  The wrapper allocates the kernel's scratch (bf16 planes padded to
 L 256).
 
 ``mlstm_chunk_bwd_cuda`` takes the same inputs and the gradient ``dh`` of
-h and returns ``(dq, dk, dv, dlog_f, dlog_i)``: nine grids of float32
-products on the CUDA cores, counted as one ``mlstm_chunk_bwd`` launch,
-with ~0.3 GB of scratch at the training shape's (16, 512, 1024), L 256
-(the chunk-start states and their gradients).  Both wrappers take
-detached tensors; :class:`repro_torch.kernels.ops.MLSTMChunk` joins them
-under autograd.
+h and returns ``(dq, dk, dv, dlog_f, dlog_i)``: eleven grids on the
+current stream, counted as one ``mlstm_chunk_bwd`` launch, whose products
+run on the tensor cores as the forward's do (two bf16 terms per operand,
+three for the raw scores q k^T).  Its scratch holds the bf16 planes of
+every operand (padded to 128-row and 128-column tiles), the chunk-start
+states and their gradients as planes, and the float32 partial sums: ~0.47
+GB at the training shape's (16, 512, 1024), L 256, ~2.3 GB at the
+prefill's (16, 2048, 1024).  Both wrappers take detached tensors;
+:class:`repro_torch.kernels.ops.MLSTMChunk` joins them under autograd.
 """
 from __future__ import annotations
 

@@ -75,6 +75,16 @@ def mlstm_chunk_bwd(bh: int, s: int, hd: int, chunk: int) -> tuple[int, int]:
     return n_bytes, flops
 
 
+def mlstm_chunk_bwd_split(bh: int, s: int, hd: int, chunk: int) -> int:
+    """The bf16 flops the backward kernel does for its least work on the
+    tensor cores: three cross products of two bf16 terms for each float32
+    product, and six (three terms of q and k) for the raw scores' causal
+    half q k^T."""
+    nch = s // chunk
+    scores = bh * 2 * hd * nch * chunk * (chunk + 1) // 2
+    return 3 * mlstm_chunk_bwd(bh, s, hd, chunk)[1] + 3 * scores
+
+
 def weighted_agg(e: int, c: int, d: int) -> tuple[int, int]:
     """``e`` edges of ``c`` client vectors of ``d`` floats and their
     weights in, the ``e`` merged vectors out; a multiply-add per value."""

@@ -52,10 +52,12 @@ atol 2e-4 (tighter than the reference's own kernel-vs-oracle 2e-3 /
 2e-4), the stabilizer m atol 1e-5 (one float32 ulp of a cumulative gate
 sum of ~30).  Through a whole model (the xLSTM smoke config, float32)
 the card's logits agree with the CPU's at rtol 1e-4, atol 1e-4.  The
-mLSTM backward kernel sums its products as fused multiply-adds in tile
-order, the plain backward as PyTorch's products: each gradient within
-1e-4 of the largest |entry| of the plain gradient (dlog_f of dlog_i's,
-whose terms it sums), two calls bit-identical; one xLSTM smoke train step
+mLSTM backward kernel sums its products on the tensor cores in tile
+order, each float32 operand split into two bf16 terms (three in the raw
+scores q k^T; tests/test_torch_mlstm_bwd_tc.py emulates it), the plain
+backward as PyTorch's products: each gradient within 1e-4 of the largest
+|entry| of the plain gradient (dlog_f of dlog_i's, whose terms it sums),
+two calls bit-identical; one xLSTM smoke train step
 (float32, remat) on the card against the CPU: loss rtol 1e-4, each
 gradient within 1e-4 of its leaf's largest CPU entry.
 """
@@ -596,6 +598,11 @@ def test_mlstm_chunk_matches_plain(cuda, case):
 
 MLSTM_BWD_CASES = MLSTM_CASES + [
     (16, 512, 1024, 256, None),   # the full-width training step's shape
+    # the tensor-core backward's tile edges: chunks padded to 128-row
+    # planes, the state walks taking heads in groups
+    (2, 8, 32, 1, None),          # L 1: one live row of a 128-row plane
+    (2, 192, 64, 64, None),       # L 64: one 64-row tile, its pair empty
+    (9, 512, 1024, 256, None),    # walks take heads in pairs, the last alone
 ]
 
 
@@ -628,9 +635,10 @@ def test_mlstm_chunk_bwd_matches_plain(cuda, case):
     """The backward kernel against ``mlstm_chunk_bwd_plain`` on the same
     inputs, each computing its own states: every gradient within 1e-4 of
     the largest plain gradient.  Both sum in other orders (the kernel as
-    fused multiply-adds in tile order, the plain version as PyTorch's
-    products); dlog_f is a reverse cumulative sum within each chunk, so
-    its rounding grows with the chunk, not with S."""
+    split-bf16 products on the tensor cores in tile order, the plain
+    version as PyTorch's products); dlog_f is a reverse cumulative sum
+    within each chunk, so its rounding grows with the chunk, not with
+    S."""
     args, dh, chunk = _mlstm_bwd_inputs(cuda, case)
     with ops.dispatch_scope() as d:
         got = mlstm_chunk_bwd_cuda(*args, dh, chunk=chunk)
