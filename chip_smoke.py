@@ -3,8 +3,9 @@ LM pre-training, xLSTM LM serving and xLSTM training paths, the paper's baseline
 architectures, the degraded federation, differentially private
 federation with the privacy attacks, the paper's evaluation matrix
 with the federation at scale, the MoE, Mamba, cross-attention and
-frame-input model families, and the launch tooling (work counts, dry
-runs, the sharding policy) once on one CUDA card.
+frame-input model families, the launch tooling (work counts, dry
+runs, the sharding policy), the column encode and the five examples'
+twins once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -207,16 +208,27 @@ which stops the run with a non-zero exit on failure:
    client 1's step (with the merge) in seconds and tokens/s, peak memory,
    and the card's busy time of client 0's step, traced, over it, with
    the mLSTM kernels' grids' share of that busy time.
+22. the rest of the public surface and the examples: (a)
+   ``tabular.encode_column`` on each of phase 3's ``adult`` continuous
+   columns (40,000 rows, Gumbels drawn on the card from a seed): one
+   ``vgm_encode`` launch a column, alpha and beta equal to the plain
+   route on the CPU bit for bit; (b) each example's twin
+   (``examples/*_torch.py``) through its ``main`` in this process, at its
+   reference's defaults (the LM server also with ``--arch xlstm-1.3b``):
+   it returns what its reference returns at this seed, its launches equal
+   those its settings give (``tests/torch_examples.py:launches``, the
+   derivation the CPU tests use), its seconds; the twins' output in
+   ``chiprun_out/phase22_examples.log``.
 
 Phases 3-5 are the serving main path, phase 6 the CTGAN training main
 path, phase 10 the LM main path, phase 11 the path of the single-column
 encode, phase 13 the xLSTM serving path, phase 21 the xLSTM training
-path, and each run of phases 15, 16, 17, 18, 19 and 20: the kernel
+path, and each run of phases 15, 16, 17, 18, 19, 20 and 22: the kernel
 launch counters are set to 0 just before each and read just after,
 every kernel of the path must have launched, and no plain-version
 counter may move.  The ``kernels`` line's ``launches`` are the main
 paths' counts (``mlstm_chunk_bwd``'s from phase 21); phases 17's to
-21's are given apart as ``launches_phase17`` to ``launches_phase21``.
+22's are given apart as ``launches_phase17`` to ``launches_phase22``.
 The last two lines of output are the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; a longer
 record goes to ``chiprun_out/chip_smoke.json``.
@@ -354,6 +366,20 @@ XT_CLIENTS, XT_STEPS, XT_BATCH, XT_SEQ = 2, 1, 4, 512
 # the mLSTM backward's sequences: the training step's two chunks and the
 # prefill's eight (the state walks cross 8 chunks)
 MLSTM_BWD_SEQS = (XT_SEQ, XL_PROMPT)
+# the examples' twins (phase 22), each at its reference's defaults (the
+# LM server also on xlstm-1.3b's smoke config, its mLSTM layer's prefill),
+# and what each returns there: privacy_attack returns 1, its WARNING that
+# DP did not move the attack toward chance, as its reference does at this
+# seed (AUC 0.602 -> 0.604 on the CPU); the seed of the column encode's
+# Gumbels
+EXAMPLE_RUNS = (("quickstart_torch", (), None),
+                ("serve_batched_torch", (), None),
+                ("serve_batched_torch", ("--arch", "xlstm-1.3b"), None),
+                ("serve_batched_torch", ("--tabular",), None),
+                ("federated_llm_pretrain_torch", (), None),
+                ("malicious_client_ablation_torch", (), None),
+                ("privacy_attack_torch", (), 1))
+ENCODE_COLUMN_SEED = 22
 
 
 def fail(msg: str):
@@ -3176,6 +3202,104 @@ def xlstm_train_phase(dev) -> dict:
             "top_kernels": top, "mlstm_ms": mlstm_ms}
 
 
+def examples_phase(dev, enc, ds) -> dict:
+    """Phase 22: (a) ``tabular.encode_column`` on each continuous column of
+    phase 3's ``adult`` through the single-column kernel, one launch a
+    column, equal to the plain route on the CPU with the same Gumbels; (b)
+    each example's twin (``examples/*_torch.py``) in this process through
+    its ``main``, at its reference's defaults: it returns what its
+    reference returns, its launches equal to its settings'
+    (``tests/torch_examples.py:launches``), no plain route.  The twins'
+    output goes to ``chiprun_out/phase22_examples.log``; a line per run
+    here."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.tabular import VGMParams, encode_column
+
+    out = {}
+    # (a) the column encode on the card against its plain route
+    cols = sorted(enc.vgms)
+    gen = torch.Generator(dev).manual_seed(ENCODE_COLUMN_SEED)
+    xs, gumbels = {}, {}
+    for j in cols:
+        xs[j] = torch.as_tensor(ds.data[:, j], dtype=torch.float32,
+                                device=dev)
+        u = torch.rand((ds.n_rows, enc.vgms[j].means.shape[0]),
+                       generator=gen, device=dev)
+        gumbels[j] = -torch.log(-torch.log(u))
+    torch.cuda.synchronize()
+    ops.DISPATCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    card = {j: encode_column(xs[j], enc.vgms[j], gumbel=gumbels[j])
+            for j in cols}
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    counts = dict(ops.DISPATCH_COUNTS)
+    check(counts == {"vgm_encode": len(cols)},
+          f"encode_column launches {counts}, expected {len(cols)} vgm_encode")
+    drawn = 0                    # modes drawn at least once, all columns
+    modes = sum(int(enc.vgms[j].means.shape[0]) for j in cols)
+    for j in cols:
+        p = enc.vgms[j]
+        cpu = encode_column(xs[j].cpu(), VGMParams(*(
+            t.cpu() for t in (p.weights, p.means, p.stds, p.valid))),
+            gumbel=gumbels[j].cpu())
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(card[j], cpu)),
+              f"encode_column: column {j} on the card differs from the "
+              "CPU's plain route")
+        drawn += int((card[j][1].sum(0) > 0).sum())
+    print(f"encode_column adult: {len(cols)} continuous columns x "
+          f"{ds.n_rows} rows, injected Gumbels; {counts['vgm_encode']} "
+          f"vgm_encode launches (one a column), {enc_s * 1e3:.2f} ms in all; "
+          f"alpha and beta equal to the CPU's plain route bit for bit; "
+          f"{drawn} of the {modes} modes drawn")
+    out["encode_column"] = {"columns": cols, "launches": counts,
+                            "seconds": enc_s}
+
+    # (b) the twins, at their references' defaults
+    log = io.StringIO()
+    runs, total = [], dict(counts)
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_examples
+    for name, argv, returns in EXAMPLE_RUNS:
+        module = torch_examples.load(name)
+        want = torch_examples.launches(name, argv)
+        text = io.StringIO()
+        ops.DISPATCH_COUNTS.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = module.main(list(argv))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        seen = dict(ops.DISPATCH_COUNTS)
+        lines = text.getvalue().splitlines()
+        log.write(f"==== {name} {' '.join(argv)} ({dt:.2f} s, rc {rc})\n"
+                  + text.getvalue())
+        check(rc == returns, f"{name} {argv}: main returned {rc}, its "
+              f"reference {returns}")
+        check(seen == want, f"{name} {argv}: launches {seen}, expected "
+              f"{want}")
+        for k, v in seen.items():
+            total[k] = total.get(k, 0) + v
+        last = next((ln.strip() for ln in reversed(lines) if ln.strip()), "")
+        runs.append({"twin": name, "argv": list(argv), "seconds": dt,
+                     "rc": rc, "launches": seen, "last_line": last})
+        print(f"example {name} {' '.join(argv) or '(defaults)'}: "
+              f"{dt:.2f} s, launches {seen} (gated), rc {rc}; last line: "
+              f"{last}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "phase22_examples.log").write_text(log.getvalue())
+    print(f"phase 22 examples: {sum(r['seconds'] for r in runs):.2f} s in "
+          f"all; their output in chiprun_out/phase22_examples.log")
+    out.update(runs=runs, launches=total)
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3870,6 +3994,13 @@ def main() -> int:
         if k["launches"] < 0:         # this path is the kernel's main path
             k["launches"] = n21
     lap("xLSTM training")
+    # ---- 22. the column encode and the examples' twins ------------------
+    ds_adult, enc_adult = tenants["adult"][:2]
+    record["examples"] = examples_phase(dev, enc_adult, ds_adult)
+    for k in kernels:
+        k["launches_phase22"] = record["examples"]["launches"].get(
+            k["name"], 0)
+    lap("column encode and examples")
     record["phase_s"] = phase_s
     print(f"phase seconds {phase_s}")
 

@@ -17,6 +17,10 @@ CONFIG = CTGANConfig(
     batch_size=500,
 )
 
+N_CLIENTS = 5          # the paper's default group size
+MAX_MODES = 10         # VGM mode cap (§5.1)
+EPOCHS = {"fedtgan": 500, "vanilla_fl": 500, "centralized": 500, "md": 150}
+
 
 def smoke_config() -> CTGANConfig:
     return CTGANConfig(z_dim=32, gen_hidden=(64, 64), disc_hidden=(64, 64),

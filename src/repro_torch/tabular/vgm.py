@@ -15,6 +15,7 @@ from typing import Sequence
 
 import torch
 
+from ..kernels import ops
 from ..kernels.ref import NEG_INF
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -157,6 +158,35 @@ def pack_vgm_params(vgms: Sequence[VGMParams], kmax: int | None = None,
         stds[q, :k] = p.stds.float()
         logw[q, :k] = kernel_log_weights(p)
     return means, stds, logw
+
+
+def encode_column(x: torch.Tensor, params: VGMParams, *,
+                  gumbel: torch.Tensor | None = None,
+                  generator: torch.Generator | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CTGAN mode-specific normalization of one column with a *sampled*
+    mode, through the single-column ``vgm_encode`` kernel route.
+
+    Returns ``alpha`` (N,), ``clip((x - mu_k) / (4 sigma_k), -1, 1)``, and
+    ``beta`` (N, K), the one-hot of the mode ``k`` drawn by Gumbel-max over
+    the log-weighted normal log-densities.  Unlike the table encode, a
+    pruned mode keeps the log-weight ``log(1e-12)``, as the reference's
+    does, so it can be drawn.  ``gumbel`` is the (N, K) noise; when not
+    given it is drawn as ``-log(-log(U))`` from ``generator`` on ``x``'s
+    device."""
+    x = x.float().contiguous()
+    means = params.means.float().contiguous()
+    stds = params.stds.float().contiguous()
+    log_w = torch.log(torch.where(params.valid,
+                                  torch.clamp(params.weights.float(),
+                                              min=1e-12),
+                                  1e-12)).contiguous()
+    if gumbel is None:
+        u = torch.rand((x.shape[0], means.shape[0]), generator=generator,
+                       device=x.device)
+        gumbel = -torch.log(-torch.log(u))
+    return ops.vgm_encode(x, means, stds, log_w,
+                          gumbel.float().contiguous())
 
 
 def decode_column(alpha: torch.Tensor, beta: torch.Tensor,

@@ -7,13 +7,12 @@ the plan that :func:`encode_plan` computes and splits its stretches as
 version on the card.  Imports only torch and numpy (and the port)."""
 import numpy as np
 import pytest
-import torch
 
-from repro_torch.kernels.vgm_encode import (MAX_THREADS, SMEM_DEFAULT,
-                                            SMEM_LIMIT, buffer_floats,
-                                            encode_plan, split16,
-                                            tile_smem_bytes, vgm_encode_cuda,
-                                            vgm_encode_table_cuda)
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.vgm_encode import (  # noqa: E402
+    MAX_THREADS, SMEM_DEFAULT, SMEM_LIMIT, buffer_floats, encode_plan,
+    split16, tile_smem_bytes, vgm_encode_cuda, vgm_encode_table_cuda)
 
 ROWS = [1, 7, 127, 128, 129, 4099, 8000, 40_000]
 # (Q, Kmax): one column of one mode up to the 3,072 params the wrappers

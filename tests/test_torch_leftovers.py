@@ -1,7 +1,10 @@
 """The port's ``sgd``, ``pytree_bytes``, ``jain_index`` and the scheduler's
 pass accounting against the JAX package's (``optim/optimizers.py:sgd``,
 ``core/comm_model.py:pytree_bytes``, ``serve/scheduling.py:jain_index``,
-``ContinuousScheduler.cycles`` / ``backlogged`` / ``starvation_bound``).
+``ContinuousScheduler.cycles`` / ``backlogged`` / ``starvation_bound``),
+and the package exports that complete the port's surface:
+``ctgan_paper``'s constants, ``serve.jain_index`` and ``launch``'s mesh
+helpers.
 
 Tolerances: SGD parameters and momentum buffers rtol 1e-6 (float32, the
 same operations in the same order; only the rounding of ``lr * g`` may
@@ -15,6 +18,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ctgan_paper as jpaper  # noqa: E402
 from repro.core import comm_model as jcomm  # noqa: E402
 from repro.optim import optimizers as jopt  # noqa: E402
 from repro.serve import scheduling as jsched  # noqa: E402
@@ -122,3 +126,31 @@ def test_scheduler_pass_accounting_matches_reference():
     for ahead, top in ((1, 1), (512, 100), (2000, 1200)):
         assert (mine.starvation_bound(ahead, top)
                 == ref.starvation_bound(ahead, top))
+
+
+def test_exports_carry_the_references_values():
+    """``ctgan_paper``'s constants equal the reference's; the port's dry run
+    takes the paper's mode cap as ``federated_encoder_init``'s default
+    (through ``setup_federation``), so that default must be ``MAX_MODES``;
+    ``serve`` and ``launch`` re-export their modules' own objects, and
+    importing ``launch`` starts no process group."""
+    import inspect
+
+    import repro_torch.launch as launch
+    import repro_torch.serve as serve
+    from repro_torch.configs import ctgan_paper
+    from repro_torch.core.encoding import federated_encoder_init
+    from repro_torch.launch import mesh
+
+    for name in ("N_CLIENTS", "MAX_MODES", "EPOCHS"):
+        assert getattr(ctgan_paper, name) == getattr(jpaper, name), name
+    cap = inspect.signature(federated_encoder_init).parameters["max_modes"]
+    assert cap.default == ctgan_paper.MAX_MODES
+    assert serve.jain_index is jain_index
+    assert set(serve.__all__) == set(__import__(
+        "repro.serve", fromlist=["__all__"]).__all__)
+    for name in ("make_production_mesh", "make_host_mesh", "dp_axes",
+                 "tp_axis"):
+        assert getattr(launch, name) is getattr(mesh, name), name
+    assert not (torch.distributed.is_available()
+                and torch.distributed.is_initialized())
